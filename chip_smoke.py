@@ -5,21 +5,32 @@
 
 Phases, each of which raises on failure (exit code 1):
 
-1. Build the CUDA kernels of the fused foveate -> unwarp path from
-   ``foveax_torch/kernels/csrc`` (one nvcc per source, in parallel).
-2. At 1080p (1920x1080 -> 1072x608) and 4K (3840x2160 -> 2144x1200), over
-   five gazes and a batch of eight for the sampler, run each kernel and its
-   plain PyTorch version on the same inputs on the card: they must be
-   bit-equal (tolerance 0).
-3. Drive the 4K main path through ``FoveationPipeline`` (``foveate_chw``
-   then the fused ``unwarp_auto_chw``) over a 32-frame gaze trace, each
-   restored frame fed back as the next input.  Every kernel's launch count
-   must rise by exactly 32, the fovea of every roundtrip must equal its
-   source, and the first frame must equal the CPU pipeline's result.
-4. Time each kernel and its plain version at the 4K main-path shapes
-   (CUDA events, median, L2 flushed between launches) and the chained full
-   path at 1080p and 4K (host clock, synchronised), beside the card's name
-   and power limit.
+1. Build the CUDA kernels from ``foveax_torch/kernels/csrc`` (one nvcc per
+   source, in parallel).
+2. Run each kernel and its plain PyTorch version on the same inputs on the
+   card: they must be bit-equal (tolerance 0; uint32 SATs compared through
+   their int32 view).  The four kernels of the fused path at 1080p
+   (1920x1080 -> 1072x608) and 4K (3840x2160 -> 2144x1200), over five gazes
+   and a batch of eight for the sampler; the SAT build K5 in both input
+   layouts on random 1080p and 4K frames, all-255 4K and 8K frames (the 8K
+   sums wrap past 2^32) and a 1000x37 frame; the SAT row select K6 at 1080p
+   and 4K with each gaze's row taps and a list with duplicates and the
+   first and last rows.
+3. Drive two 4K paths through ``FoveationPipeline``, each over a 32-frame
+   gaze trace with every restored frame fed back as the next input
+   (``foveate_chw`` then the fused ``unwarp_auto_chw``): the fused path
+   (K1-K4 rise by exactly 32, K5 and K6 by 0) and the SAT path,
+   ``sampler="sat"`` (K5, K3 and K4 by 32, the others by 0; every reduced
+   frame equal to the fused pipeline's on the same input).  In both the
+   fovea of every roundtrip must equal its source and the first frame the
+   CPU pipeline's result.  Then the serve tick's SAT pair at 4K
+   (``batch_pair("sat")``, eight gazes: one K5 launch, the batch equal to
+   the fused batch) and the degrade contract (1920x1080 -> 64x36, outside
+   the fused sampler's contract: "auto" runs the SAT path, "fused" raises).
+4. Time each kernel, its plain version and, for K5, the library's two
+   ``torch.cumsum`` calls at the 4K main-path shapes (CUDA events, median,
+   L2 flushed between launches), and both chained paths at 1080p and 4K
+   (host clock, synchronised), beside the card's name and power limit.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -39,6 +50,8 @@ import numpy as np
 import torch
 
 from foveax_torch import FoveaxConfig, FoveationPipeline
+from foveax_torch.kernels import fused_select as fs
+from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
 from foveax_torch.kernels import unwarp as uw
 from foveax_torch.kernels.build import build
@@ -49,6 +62,19 @@ BATCH_GAZES = GAZES + [(0.25, 0.75), (0.8, 0.2), (0.6, 0.55)]
 N_FRAMES = 32
 FOVEA = 8  # half-width of the crop around the gaze that must round-trip
 SEED = 0
+# K5's comparison frames: (label, width, height, fill or None for random).
+SAT_FRAMES = [
+    ("1080p", 1920, 1080, None),
+    ("4k", 3840, 2160, None),
+    ("4k all-255", 3840, 2160, 255),
+    ("8k all-255", 7680, 4320, 255),
+    ("1000x37", 1000, 37, None),
+]
+# The kernels each path launches once per frame.
+PATH_KERNELS = {
+    "fused": ("segreduce_y", "segreduce_x", "unwarp_x", "unwarp_y"),
+    "sat": ("sat_build", "unwarp_x", "unwarp_y"),
+}
 
 # H100 SXM data sheet: HBM bandwidth, and the float32 rate outside the
 # tensor cores (the kernels' integer and float32 scalar work is counted
@@ -69,17 +95,26 @@ def gaze_trace(n: int) -> np.ndarray:
 def kernel_table():
     seg = "foveax_torch/kernels/csrc/segreduce.cu"
     unw = "foveax_torch/kernels/csrc/unwarp.cu"
+    scan = "foveax_torch/kernels/csrc/scan2d.cu"
     return {
         "segreduce_y": (sr.Y_PASS, seg, "foveax/kernels/segreduce.py:251"),
         "segreduce_x": (sr.X_PASS, seg, "foveax/kernels/segreduce.py:511"),
         "unwarp_x": (uw.X_PASS, unw, "foveax/kernels/unwarp_pl.py:264"),
         "unwarp_y": (uw.Y_PASS, unw, "foveax/kernels/unwarp_pl.py:192"),
+        "sat_build": (scan2d.SAT_BUILD, scan, "foveax/kernels/scan2d.py:51"),
+        "sat_select_rows": (fs.SELECT_ROWS, scan,
+                            "foveax/kernels/fused_select.py:46"),
     }
 
 
-def make_pipeline(shape: str, device: str):
+def make_pipeline(shape: str, device: str, sampler: str = "auto"):
     w, h = SHAPES[shape]
-    return FoveationPipeline(FoveaxConfig().with_source(w, h), device=device)
+    pipe = FoveationPipeline(
+        FoveaxConfig().with_source(w, h), sampler=sampler, device=device
+    )
+    if sampler != "auto" and pipe.sampler != sampler:
+        raise AssertionError(f"asked for {sampler}, got {pipe.sampler}")
+    return pipe
 
 
 def make_frame(pipe, seed: int) -> torch.Tensor:
@@ -119,7 +154,15 @@ def path_cases(pipe, frame, centers):
     return cases
 
 
+def as_int64(t: torch.Tensor) -> torch.Tensor:
+    """Exact values as int64: a uint32 SAT through its int32 view (no
+    signed 32-bit difference, which would wrap past 2^31)."""
+    return scan2d.as_int64(t) if t.dtype == torch.uint32 else t.to(torch.int64)
+
+
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest |kernel - plain| over the elements, in int64; raises
+    unless shape and dtype agree."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(
             f"kernel gave {got.dtype} {tuple(got.shape)}, plain version "
@@ -127,11 +170,28 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
         )
     if not got.numel():
         return 0
-    return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    return int((as_int64(got) - as_int64(want)).abs().max())
+
+
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> int:
+    """Bit equality of a kernel's output and its plain version's (uint32
+    through the int32 view); returns the max |error|, raises on any
+    mismatch."""
+    err = max_abs_err(got, want)
+    if got.dtype == torch.uint32:
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        same = torch.equal(got, want)
+    if err or not same:
+        raise AssertionError(
+            f"{name} {what}: kernel differs from its plain version by {err}"
+        )
+    return err
 
 
 def phase_compare(device: str, shapes=tuple(SHAPES)) -> dict[str, int]:
-    """Every kernel against its plain version, bit for bit."""
+    """Every kernel of the fused path against its plain version, bit for
+    bit."""
     errs: dict[str, int] = {}
     for shape in shapes:
         pipe = make_pipeline(shape, device)
@@ -142,16 +202,62 @@ def phase_compare(device: str, shapes=tuple(SHAPES)) -> dict[str, int]:
             for name, (fn, plain, args, _) in path_cases(pipe, frame, centers).items():
                 if len(gazes) > 1 and name.startswith("unwarp"):
                     continue  # the batch exercises the sampler's gaze axis
-                err = max_abs_err(fn(*args), plain(*args))
+                err = check_equal(name, fn(*args), plain(*args),
+                                  f"at {shape}, gazes {gazes}")
                 errs[name] = max(errs.get(name, 0), err)
-                if err:
-                    raise AssertionError(
-                        f"{name} at {shape}, gazes {gazes}: kernel differs "
-                        f"from its plain version by {err}"
-                    )
         print(f"compare {shape}: {len(batches)} gaze sets, all four kernels "
               "bit-equal to their plain versions", flush=True)
     return errs
+
+
+def sat_frame(w: int, h: int, fill, device: str) -> torch.Tensor:
+    """A (3, H, W) uint8 frame: random from the seed, or all ``fill``."""
+    if fill is not None:
+        return torch.full((3, h, w), fill, dtype=torch.uint8, device=device)
+    rng = np.random.default_rng(SEED + w + h)
+    return torch.from_numpy(rng.integers(0, 256, (3, h, w), np.uint8)).to(device)
+
+
+def phase_compare_sat(errs: dict[str, int]) -> None:
+    """K5 in both layouts and K6 against their plain versions."""
+    for label, w, h, fill in SAT_FRAMES:
+        chw = sat_frame(w, h, fill, "cuda")
+        want = scan2d.sat_scan_plain(chw)
+        for layout in ("chw", "hwc"):
+            frame = chw if layout == "chw" else chw.permute(1, 2, 0).contiguous()
+            got = scan2d.sat_scan(frame, in_layout=layout)
+            err = check_equal("sat_build", got, want, f"{label} {layout}")
+            errs["sat_build"] = max(errs.get("sat_build", 0), err)
+        if fill is not None:
+            corner = int(as_int64(want[0, -1, -1]))
+            if corner != fill * w * h % 2**32:
+                raise AssertionError(f"sat_build {label}: corner {corner}")
+        del want
+    print(f"compare sat_build: {len(SAT_FRAMES)} frames x 2 layouts, "
+          "bit-equal to the plain version", flush=True)
+
+    for shape in SHAPES:
+        pipe = make_pipeline(shape, "cuda")
+        frame = make_frame(pipe, SEED)
+        rcw = frame.permute(1, 0, 2).contiguous()
+        h = frame.shape[1]
+        lists = []
+        for g in GAZES:
+            centers = torch.tensor([g], dtype=torch.float32, device="cuda")
+            *_, pyc, pymc, _ = sr.fused_taps(pipe.grid, frame, centers)
+            lists.append((f"gaze {g}", pyc[0], pymc[0]))
+        hand = torch.tensor([0, 0, 1, h // 2, h // 2, h // 2, h - 1, h - 1],
+                            dtype=torch.int32, device="cuda")
+        lists.append(("duplicates and rows 0, H-1", hand, hand))
+        for what, pyc, pymc in lists:
+            got = fs.sat_select_rows(rcw, pyc, pymc)
+            want = fs.sat_select_rows_plain(rcw, pyc, pymc)
+            for part, g_, w_ in zip(("hi", "lo"), got, want):
+                err = check_equal("sat_select_rows", g_, w_,
+                                  f"{shape} {what} {part}")
+                errs["sat_select_rows"] = max(errs.get("sat_select_rows", 0), err)
+        print(f"compare sat_select_rows {shape}: {len(lists)} row lists, "
+              "bit-equal to the plain version", flush=True)
 
 
 def fovea_slices(pipe, gaze) -> tuple[slice, slice]:
@@ -162,41 +268,73 @@ def fovea_slices(pipe, gaze) -> tuple[slice, slice]:
             slice(max(cx - FOVEA, 0), cx + FOVEA + 1))
 
 
-def run_main_path(pipe, frame, gazes, centers):
-    """The chained main path: returns the last frame and, per frame, a
-    device flag that the fovea round-tripped exactly."""
+def run_main_path(pipe, frame, gazes, centers, keep: bool = False):
+    """The chained main path: returns the last frame, per frame a device
+    flag that the fovea round-tripped exactly, and (with ``keep``) each
+    frame's (input, reduced) pair."""
     y = frame
-    fovea_ok = []
+    fovea_ok, kept = [], []
     for g, c in zip(gazes, centers):
         reduced = pipe.foveate_chw(y, c)
         out = pipe.unwarp_auto_chw(reduced, c)
         ys, xs = fovea_slices(pipe, g)
         fovea_ok.append((out[:, ys, xs] == y[:, ys, xs]).all())
+        if keep:
+            kept.append((y, reduced))
         y = out
-    return y, torch.stack(fovea_ok)
+    return y, torch.stack(fovea_ok), kept
 
 
-def phase_main_path(device: str, kernels, shape: str = "4k") -> dict[str, int]:
-    pipe = make_pipeline(shape, device)
-    frame = make_frame(pipe, SEED + 1)
-    gazes = gaze_trace(N_FRAMES)
-    centers = [torch.from_numpy(g).to(device) for g in gazes]
+def zero_counts(kernels) -> None:
     for kernel, _, _ in kernels.values():
         kernel.launches = 0
-    last, fovea_ok = run_main_path(pipe, frame, gazes, centers)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    launches = {name: k.launches for name, (k, _, _) in kernels.items()}
+
+
+def read_counts(kernels) -> dict[str, int]:
+    torch.cuda.synchronize()
+    return {name: k.launches for name, (k, _, _) in kernels.items()}
+
+
+def expect_counts(what: str, launches: dict[str, int], expected: dict[str, int]):
+    want = {name: expected.get(name, 0) for name in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+
+def phase_main_path(kernels, sampler: str, shape: str = "4k") -> dict[str, int]:
+    """One path over the 32-frame trace, its launch counts read around
+    it.  For the SAT path every reduced frame is then held to the fused
+    pipeline's on the same input."""
+    pipe = make_pipeline(shape, "cuda", sampler)
+    frame = make_frame(pipe, SEED + 1)
+    gazes = gaze_trace(N_FRAMES)
+    centers = [torch.from_numpy(g).to("cuda") for g in gazes]
+    zero_counts(kernels)
+    last, fovea_ok, kept = run_main_path(
+        pipe, frame, gazes, centers, keep=sampler == "sat"
+    )
+    launches = read_counts(kernels)
     hr, wr, _ = pipe.reduced_shape
     h, w, _ = pipe.source_shape
     if last.shape != (3, h, w) or last.dtype != torch.uint8:
-        raise AssertionError(f"main path gave {last.dtype} {tuple(last.shape)}")
+        raise AssertionError(f"{sampler} path gave {last.dtype} {tuple(last.shape)}")
     if not bool(fovea_ok.all()):
         bad = (~fovea_ok).nonzero().flatten().tolist()
-        raise AssertionError(f"fovea not round-tripped exactly at frames {bad}")
+        raise AssertionError(
+            f"{sampler} path: fovea not round-tripped exactly at frames {bad}"
+        )
+    expect_counts(f"{sampler} path", launches,
+                  {name: N_FRAMES for name in PATH_KERNELS[sampler]})
+
+    if kept:
+        fused = make_pipeline(shape, "cuda", "fused")
+        for i, ((x, reduced), c) in enumerate(zip(kept, centers)):
+            if not torch.equal(fused.foveate_chw(x, c), reduced):
+                raise AssertionError(f"SAT path frame {i} differs from the fused path")
+        del kept
 
     # The first frame against the CPU pipeline (plain versions throughout).
-    cpu = make_pipeline(shape, "cpu")
+    cpu = make_pipeline(shape, "cpu", sampler)
     c0 = torch.from_numpy(gazes[0])
     want_red = cpu.foveate_chw(frame.cpu(), c0)
     want_out = cpu.unwarp_auto_chw(want_red, c0)
@@ -207,14 +345,60 @@ def phase_main_path(device: str, kernels, shape: str = "4k") -> dict[str, int]:
     for what, got, want in (("reduced", got_red, want_red),
                             ("restored", got_out, want_out)):
         if not torch.equal(got.cpu(), want):
-            raise AssertionError(f"{shape} {what} frame differs from the CPU path")
-    print(f"main path {shape}: {N_FRAMES} chained frames, launches {launches}, "
-          "fovea exact on every frame, first frame equal to the CPU path",
-          flush=True)
-    for name, n in launches.items():
-        if n != N_FRAMES:
-            raise AssertionError(f"{name} launched {n} times, expected {N_FRAMES}")
+            raise AssertionError(f"{sampler} {shape} {what} frame differs from the CPU path")
+    same = ", each reduced frame equal to the fused path's" if sampler == "sat" else ""
+    print(f"main path {sampler} {shape}: {N_FRAMES} chained frames, launches "
+          f"{launches}, fovea exact on every frame{same}, first frame equal "
+          "to the CPU path", flush=True)
     return launches
+
+
+def phase_serve_pair(kernels, shape: str = "4k") -> None:
+    """The serve tick's SAT pair over a gaze batch: one SAT build, the
+    batch equal to the fused batch sampler's."""
+    pipe = make_pipeline(shape, "cuda")
+    frame = make_frame(pipe, SEED + 4).permute(1, 2, 0).contiguous()
+    centers = torch.tensor(BATCH_GAZES, dtype=torch.float32, device="cuda")
+    prepare, sample_batch = pipe.batch_pair("sat")
+    zero_counts(kernels)
+    got = sample_batch(prepare(frame), centers)
+    launches = read_counts(kernels)
+    expect_counts("serve pair", launches, {"sat_build": 1})
+    if not torch.equal(got, pipe.sample_batch_fused(frame, centers)):
+        raise AssertionError("SAT serve pair differs from the fused batch")
+    print(f"serve pair sat {shape}: {len(BATCH_GAZES)} gazes, launches "
+          f"{launches}, equal to the fused batch", flush=True)
+
+
+def phase_degrade(kernels) -> None:
+    """A shape outside the fused sampler's contract: "auto" resolves to
+    the SAT path and runs K5, an explicit "fused" raises."""
+    cfg = FoveaxConfig(source_width=1920, source_height=1080,
+                       reduced_width=64, reduced_height=36)
+    pipe = FoveationPipeline(cfg)
+    if pipe.sampler != "sat":
+        raise AssertionError(f"auto resolved to {pipe.sampler} at 1920x1080 -> 64x36")
+    try:
+        FoveationPipeline(cfg, sampler="fused")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("sampler='fused' accepted an ineligible shape")
+    frame = sat_frame(1920, 1080, None, "cuda")
+    c = pipe.center(0.3, 0.6)
+    # The exact unwarp: this shape's delta steps exceed the fused unwarp's
+    # 255 bound.
+    zero_counts(kernels)
+    got = pipe.roundtrip_chw(frame, c)
+    launches = read_counts(kernels)
+    expect_counts("degrade", launches, {"sat_build": 1})
+    cpu = FoveationPipeline(cfg, device="cpu")
+    want = cpu.roundtrip_chw(frame.cpu(), c.cpu())
+    for g, w_ in zip(got, want):
+        if not torch.equal(g.cpu(), w_):
+            raise AssertionError("degraded path differs from the CPU path")
+    print(f"degrade 1920x1080 -> 64x36: auto -> sat, launches {launches}, "
+          "equal to the CPU path; fused raises", flush=True)
 
 
 def time_cuda(fn, args, reps: int, flush: torch.Tensor) -> float:
@@ -234,15 +418,44 @@ def time_cuda(fn, args, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def phase_timing(kernels, shape: str = "4k") -> list[dict]:
+def sat_cases(pipe, frame, centers):
+    """K5 and K6 as the SAT path and ``sat_select_rows`` give them work at
+    this shape, with their library yardstick (K5: two ``torch.cumsum``
+    calls in int64; none selects SAT rows without building the SAT).  Ops
+    count one add per element of each scan the data needs."""
+    _, h, w = frame.shape
+    *_, pyc, pymc, _ = sr.fused_taps(pipe.grid, frame, centers)
+    pyc, pymc = pyc[0], pymc[0]
+    rows_walked = int(torch.maximum(pyc[-1], pymc[-1])) + 1
+    rcw = frame.permute(1, 0, 2).contiguous()
+    return {
+        "sat_build": (
+            lambda f: scan2d.sat_scan(f, in_layout="chw"), scan2d.sat_scan_plain,
+            (frame,), 2 * 3 * h * w,
+            lambda f: torch.cumsum(torch.cumsum(f, 2, dtype=torch.int64), 1),
+        ),
+        "sat_select_rows": (
+            fs.sat_select_rows, fs.sat_select_rows_plain, (rcw, pyc, pymc),
+            3 * w * rows_walked + 2 * pyc.numel() * 3 * w, None,
+        ),
+    }
+
+
+def phase_timing(shape: str = "4k") -> list[dict]:
     pipe = make_pipeline(shape, "cuda")
     frame = make_frame(pipe, SEED + 2)
     centers = torch.tensor([GAZES[0]], dtype=torch.float32, device="cuda")
     flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")  # 128 MiB
+    cases = {
+        name: (*case, None)
+        for name, case in path_cases(pipe, frame, centers).items()
+    }
+    cases.update(sat_cases(pipe, frame, centers))
     rows = []
-    for name, (fn, plain, args, ops) in path_cases(pipe, frame, centers).items():
+    for name, (fn, plain, args, ops, library) in cases.items():
         out = fn(*args)
-        nbytes = sum(t.numel() * t.element_size() for t in (*args, out))
+        outs = out if isinstance(out, tuple) else (out,)
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         row = {
@@ -251,6 +464,7 @@ def phase_timing(kernels, shape: str = "4k") -> list[dict]:
             "plain_ms": time_cuda(plain, args, 10, flush),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None if library is None else time_cuda(library, args, 10, flush),
             "bytes": nbytes,
             "ops": ops,
         }
@@ -259,10 +473,10 @@ def phase_timing(kernels, shape: str = "4k") -> list[dict]:
     return rows
 
 
-def phase_path_fps(shape: str) -> float:
+def phase_path_fps(shape: str, sampler: str) -> float:
     """Chained full-path frames per second (host clock, synchronised),
     the median of three 32-frame runs after a warm-up."""
-    pipe = make_pipeline(shape, "cuda")
+    pipe = make_pipeline(shape, "cuda", sampler)
     frame = make_frame(pipe, SEED + 3)
     gazes = gaze_trace(N_FRAMES)
     centers = [torch.from_numpy(g).cuda() for g in gazes]
@@ -279,8 +493,8 @@ def phase_path_fps(shape: str) -> float:
     chain(2)
     dt = statistics.median(chain(N_FRAMES) for _ in range(3))
     fps = N_FRAMES / dt
-    print(f"path {shape}: {fps:.3f} fps ({dt / N_FRAMES * 1e3:.4f} ms/frame, "
-          f"{N_FRAMES} chained frames)", flush=True)
+    print(f"path {sampler} {shape}: {fps:.3f} fps ({dt / N_FRAMES * 1e3:.4f} "
+          f"ms/frame, {N_FRAMES} chained frames)", flush=True)
     return fps
 
 
@@ -297,7 +511,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    logs = build(["segreduce", "unwarp"])
+    logs = build(["segreduce", "unwarp", "scan2d"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -306,10 +520,20 @@ def main() -> int:
 
     kernels = kernel_table()
     errs = phase_compare("cuda")
-    launches = phase_main_path("cuda", kernels)
-    timing = {row["name"]: row for row in phase_timing(kernels)}
+    phase_compare_sat(errs)
+    fused_launches = phase_main_path(kernels, "fused")
+    sat_launches = phase_main_path(kernels, "sat")
+    phase_serve_pair(kernels)
+    phase_degrade(kernels)
+    # Each kernel's count from the run of its path; K6 is on no path.
+    launches = {
+        name: (fused_launches if name in PATH_KERNELS["fused"] else sat_launches)[name]
+        for name in kernels
+    }
+    timing = {row["name"]: row for row in phase_timing()}
     for shape in SHAPES:
-        phase_path_fps(shape)
+        for sampler in PATH_KERNELS:
+            phase_path_fps(shape, sampler)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {
@@ -323,7 +547,7 @@ def main() -> int:
             "plain_ms": timing[name]["plain_ms"],
             "bound_ms": timing[name]["bound_ms"],
             "bound_by": timing[name]["bound_by"],
-            "library_ms": None,
+            "library_ms": timing[name]["library_ms"],
         }
         for name, (_, source, replaces) in kernels.items()
     ]}))

@@ -8,13 +8,19 @@ output cell (j, i) is the source interval ``(pmc, pc]`` on each axis
 enters as a runtime tensor added to the grid, so a moving gaze rebuilds
 nothing.
 
-The shared-tap ``q``/``fix`` outputs of the JAX ``_axis_taps`` serve only
-the SAT gather path, which a later part of the port brings.
+:func:`sample_rect_from_sat` is the SAT path's 4-tap sampler.  The JAX
+package's shared-tap gathers (``q``/``fix`` of its ``_axis_taps``, the
+``top_k`` fixup and the uint16 row bands) halve the traffic through the
+TPU's slow gather engine; the port reaches the same integers with plain
+indexed gathers, so those outputs are not carried over.
 """
 
 from __future__ import annotations
 
 import torch
+
+from foveax_torch.core.logrect import LogRectGrid, scaled_center
+from foveax_torch.kernels.scan2d import MASK32
 
 
 def _exact_box_div(box: torch.Tensor, rect: torch.Tensor) -> torch.Tensor:
@@ -53,3 +59,56 @@ def _axis_taps(g: torch.Tensor, c: torch.Tensor, dim: int, *, wrap: bool):
     pc = px.clamp(1, dim - 1)
     pmc = torch.minimum(pxm.clamp_min(0), pc - 1)
     return pc.to(torch.int32), pmc.to(torch.int32), valid
+
+
+def sample_rect_from_sat(
+    sat: torch.Tensor,
+    grid: LogRectGrid,
+    center: torch.Tensor,
+    *,
+    wrap_x: bool = True,
+    out_layout: str = "hwc",
+    taps: str = "shared",
+) -> torch.Tensor:
+    """Foveate from a SAT: (3, Hs, Ws) ``torch.uint32`` SAT -> reduced
+    uint8 frame, (Ho, Wo, 3) for "hwc" or (3, Ho, Wo) for "chw".
+
+    ``center`` is a float32 (2,) tensor (cx, cy) in [0, 1], or (N, 2) for
+    N gazes against the one SAT, which puts a leading N on the result.
+    ``wrap_x`` enables the 360-degree horizontal wrap.  Invalid texels are
+    0.  ``taps`` "shared" or "paired" name the JAX package's two gather
+    schemes; both give these integers, which are computed here by two row
+    gathers and four column gathers on the SAT's int32 view, the 4-tap
+    difference in int64 mod 2^32 and the exact box division.
+    """
+    if taps not in ("shared", "paired"):
+        raise ValueError(f"taps {taps!r}: expected 'shared' or 'paired'")
+    _, hs, ws = sat.shape
+    c = center.reshape(-1, 2)
+    n = c.shape[0]
+    cx, cy = scaled_center(c, ws, hs)  # (N,)
+    pxc, pxmc, valid_x = _axis_taps(grid.gx, cx[:, None], ws, wrap=wrap_x)
+    pyc, pymc, valid_y = _axis_taps(grid.gy, cy[:, None], hs, wrap=False)
+    ho, wo = pyc.shape[1], pxc.shape[1]
+
+    s = sat.view(torch.int32)
+
+    def rows(idx):  # (3, N, Ho, Ws) int32
+        return s.index_select(1, idx.reshape(-1)).reshape(3, n, ho, ws)
+
+    def cols(r, idx):  # (3, N, Ho, Wo), the uint32 values mod 2^32
+        idx = idx.long()[None, :, None, :].expand(3, n, ho, wo)
+        return r.gather(3, idx).to(torch.int64)
+
+    hi, lo = rows(pyc), rows(pymc)
+    box = (
+        cols(hi, pxc) - cols(lo, pxc) - cols(hi, pxmc) + cols(lo, pxmc)
+    ) & MASK32  # a true box sum is below 2^32
+    dy = (pyc - pymc).long()[None, :, :, None]
+    rect = dy * (pxc - pxmc).long()[None, :, None, :]
+    vals = _exact_box_div(box, rect)
+    valid = valid_y[None, :, :, None] & valid_x[None, :, None, :]
+    out = torch.where(valid, vals, 0).to(torch.uint8)
+    order = (1, 0, 2, 3) if out_layout == "chw" else (1, 2, 3, 0)
+    out = out.permute(order).contiguous()
+    return out if center.dim() == 2 else out[0]

@@ -1,17 +1,25 @@
 """Frame-level pipeline functions (counterpart of
-``foveax/pipeline/frames.py``) for the fused path.
+``foveax/pipeline/frames.py``).
 
-    foveate(frame, center)            fused sampler, (H, W, 3) -> (Hr, Wr, 3)
+    foveate(frame, center)            (H, W, 3) -> (Hr, Wr, 3), by the
+                                      resolved sampler
+    build_sat(frame)                  SAT build (kernel K5 on the card)
+    sample(sat, center)               4-tap sample of a built SAT
     unwarp(reduced, center)           exact unwarp back to (H, W, 3)
     unwarp_auto(reduced, center)      fused unwarp (the kernels)
     roundtrip(frame, center)          foveate + exact unwarp
+    foveate_batch(frame, centers)     one SAT, N gazes
     sample_batch_fused(frame, cs)     one frame, N gazes, one launch per pass
 
 The ``_chw`` variants take and return channel-planar (3, H, W) frames, the
 layout of the device-resident hot path.  Gaze centres are runtime tensors:
-a moving gaze rebuilds nothing.  The sampler is the fused one, with the
-360 wrap on x; the SAT sampler comes with a later part of the port, so an
-ineligible shape raises instead of degrading to it.
+a moving gaze rebuilds nothing.
+
+Samplers: "fused" (the segment-reduce kernels K1/K2, no SAT), "sat" (SAT
+build K5, then the 4-tap sampler) or "auto": fused where the shape is
+inside the fused sampler's contract, SAT otherwise, on every device.  The
+two are bit-identical.  An explicit "fused" on a shape outside the
+contract raises, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import torch
 
 from foveax_torch.config import FoveaxConfig
 from foveax_torch.core.logrect import LogRectGrid, make_grid
+from foveax_torch.core.sample import sample_rect_from_sat
+from foveax_torch.core.sat import build_sat
 from foveax_torch.core.unwarp import unwarp_rect
 from foveax_torch.device import resolve_device
 from foveax_torch.kernels.segreduce import (
@@ -28,6 +38,8 @@ from foveax_torch.kernels.segreduce import (
     sample_rect_fused_batch,
 )
 
+SAMPLERS = ("sat", "fused")
+
 
 def _identity(frame: torch.Tensor) -> torch.Tensor:
     """"prepare" of the SAT-free pairs: the staged frame is the prepared
@@ -35,38 +47,77 @@ def _identity(frame: torch.Tensor) -> torch.Tensor:
     return frame
 
 
+def _check_sampler(sampler: str) -> None:
+    if sampler not in (*SAMPLERS, "auto"):
+        raise ValueError(
+            f"sampler {sampler!r}: the ported samplers are 'sat' and "
+            "'fused' (or 'auto')"
+        )
+
+
 class FoveationPipeline:
     """Pipeline for one (source, reduced) shape configuration on one
     device (``cuda`` unless ``device="cpu"`` is passed).  Stateless apart
-    from the grid: one instance serves any number of connections."""
+    from the grid: one instance serves any number of connections.
+    ``self.sampler`` holds the resolved sampler, "fused" or "sat"."""
 
     def __init__(
         self,
         config: FoveaxConfig | None = None,
         *,
+        wrap_x: bool = True,
+        sampler: str = "auto",
         device: str | torch.device | None = None,
     ):
+        _check_sampler(sampler)
         self.config = config or FoveaxConfig()
         self.device = resolve_device(device)
+        self.wrap_x = wrap_x
         cfg = self.config
         self.grid: LogRectGrid = make_grid(
             cfg.reduced_width, cfg.reduced_height, cfg.source_width,
             cfg.source_height, self.device,
         )
-        if not fused_eligible(self.grid):
+        self.fused_ok = fused_eligible(self.grid)
+        if sampler == "auto":
+            sampler = "fused" if self.fused_ok else "sat"
+        elif sampler == "fused" and not self.fused_ok:
             raise ValueError(
                 f"{cfg.source_width}x{cfg.source_height} -> "
                 f"{cfg.reduced_width}x{cfg.reduced_height} is outside the "
-                "fused sampler's contract"
+                "fused sampler's contract (use sampler='sat' or 'auto')"
             )
+        self.sampler = sampler
+
+    # -- the SAT pair -----------------------------------------------------
+
+    def build_sat(self, frame):
+        """(H, W, 3) uint8 -> (3, H, W) uint32 SAT."""
+        return build_sat(frame)
+
+    def sample(self, sat, center):
+        return sample_rect_from_sat(sat, self.grid, center, wrap_x=self.wrap_x)
+
+    def sample_chw(self, sat, center):
+        return sample_rect_from_sat(
+            sat, self.grid, center, wrap_x=self.wrap_x, out_layout="chw"
+        )
 
     # -- single gaze ------------------------------------------------------
 
     def foveate(self, frame, center):
-        return sample_rect_fused(frame, self.grid, center, in_layout="hwc")
+        if self.sampler == "sat":
+            return self.sample(build_sat(frame), center)
+        return sample_rect_fused(
+            frame, self.grid, center, wrap_x=self.wrap_x, in_layout="hwc"
+        )
 
     def foveate_chw(self, frame, center):
-        return sample_rect_fused(frame, self.grid, center, out_layout="chw")
+        if self.sampler == "sat":
+            return self.sample_chw(build_sat(frame, in_layout="chw"), center)
+        return sample_rect_fused(
+            frame, self.grid, center, wrap_x=self.wrap_x, out_layout="chw"
+        )
 
     def unwarp(self, reduced, center):
         cfg = self.config
@@ -104,24 +155,50 @@ class FoveationPipeline:
 
     # -- gaze batches -----------------------------------------------------
 
+    def sample_batch(self, sat, centers):
+        """One SAT + (N, 2) centres -> (N, Hr, Wr, 3)."""
+        return self.sample(sat, centers)
+
+    def foveate_batch(self, frame, centers):
+        """(H, W, 3) frame, one SAT, (N, 2) centres -> (N, Hr, Wr, 3)."""
+        return self.sample_batch(build_sat(frame), centers)
+
+    def roundtrip_batch(self, frame, centers):
+        """One SAT, N gazes: ((N, Hr, Wr, 3), (N, H, W, 3)), each gaze's
+        reduced frame and its exact unwarp."""
+        reduced = self.foveate_batch(frame, centers)
+        restored = torch.stack(
+            [self.unwarp(r, c) for r, c in zip(reduced, centers)]
+        )
+        return reduced, restored
+
     def sample_batch_fused(self, frame, centers):
         """(H, W, 3) frame + (N, 2) centres -> (N, Hr, Wr, 3)."""
-        return sample_rect_fused_batch(frame, self.grid, centers, in_layout="hwc")
+        return sample_rect_fused_batch(
+            frame, self.grid, centers, wrap_x=self.wrap_x, in_layout="hwc"
+        )
 
     def batch_pair(self, batch_sampler: str = "auto"):
         """The serve tick's device pair ``(prepare, sample_batch)``:
         ``prepare(frame_hwc)`` once per source frame,
-        ``sample_batch(prepared, centers)`` once per member batch."""
-        if batch_sampler in ("auto", "fused"):
-            return _identity, self.sample_batch_fused
-        raise ValueError(
-            f"batch_sampler {batch_sampler!r}: only the fused sampler is "
-            "ported"
-        )
+        ``sample_batch(prepared, centers)`` once per member batch.  "sat"
+        builds one SAT per frame for the whole batch; "fused" needs no
+        prepare stage; "auto" is fused where the shape is eligible and
+        "sat" otherwise."""
+        _check_sampler(batch_sampler)
+        if batch_sampler == "auto":
+            batch_sampler = "fused" if self.fused_ok else "sat"
+        if batch_sampler == "sat":
+            return self.build_sat, self.sample_batch
+        return _identity, self.sample_batch_fused
 
     def single_pair(self):
-        """(prepare, sample) for the single-session serve loop: the fused
+        """(prepare, sample) for the single-session serve loop: the SAT
+        pair when the resolved sampler is "sat" (prepare the SAT eagerly,
+        sample at the gaze-late tick), else (stage, foveate): the fused
         sampler has no gaze-independent prepare stage."""
+        if self.sampler == "sat":
+            return self.build_sat, self.sample
         return _identity, self.foveate
 
     # -- convenience ------------------------------------------------------

@@ -1,5 +1,6 @@
 """The CUDA kernels of foveax_torch on the card: each wrapper against its
-plain version (tolerance 0), its input checks and its launch count.
+plain version (tolerance 0, the SAT compared through its int32 view), its
+input checks and its launch count; the SAT pipeline against the fused one.
 
 These tests need a CUDA device and skip without one.  On the card, run
 
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from foveax_torch import FoveaxConfig, FoveationPipeline
+from foveax_torch.kernels import fused_select as fs
+from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
 from foveax_torch.kernels import unwarp as uw
 
@@ -39,6 +42,8 @@ def frame(pipe):
 
 def _equal(got, want):
     assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.uint32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
     assert torch.equal(got.to(torch.int32), want.to(torch.int32))
 
 
@@ -103,3 +108,103 @@ def test_wrappers_check_inputs(pipe, frame):
         uw.unwarp_x_pass(red[:, :, ::2], *xv)
     with pytest.raises(ValueError, match="den"):
         uw.unwarp_x_pass(red, *xv[:3], xv[3].long())
+
+
+@pytest.mark.parametrize(
+    "shape, fill",
+    [((512, 1920), None), ((37, 1000), None), ((2160, 3840), 255)],
+    ids=["1920x512", "1000x37", "4k-all-255"],
+)
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_sat_build_matches_plain(pipe, shape, fill, layout):
+    h, w = shape
+    if fill is None:
+        rng = np.random.default_rng(h + w)
+        chw = torch.from_numpy(rng.integers(0, 256, (3, h, w), np.uint8)).cuda()
+    else:
+        chw = torch.full((3, h, w), fill, dtype=torch.uint8, device="cuda")
+    frame = chw if layout == "chw" else chw.permute(1, 2, 0).contiguous()
+    got = scan2d.sat_scan(frame, in_layout=layout)
+    _equal(got, scan2d.sat_scan_plain(chw))
+    if fill is not None:
+        corner = int(scan2d.as_int64(got[:, -1, -1])[0])
+        assert corner == (255 * h * w) % 2**32
+
+
+@pytest.mark.parametrize("gaze", CENTERS[:3])
+def test_select_rows_matches_plain(pipe, frame, gaze):
+    centers = torch.tensor([gaze], dtype=torch.float32, device="cuda")
+    *_, pyc, pymc, _ = sr.fused_taps(pipe.grid, frame, centers)
+    rcw = frame.permute(1, 0, 2).contiguous()
+    got = fs.sat_select_rows(rcw, pyc[0], pymc[0])
+    want = fs.sat_select_rows_plain(rcw, pyc[0], pymc[0])
+    for g, w_ in zip(got, want):
+        _equal(g, w_)
+    dup = torch.tensor([0, 0, 5, 5, 5, 511, 511], dtype=torch.int32, device="cuda")
+    for g, w_ in zip(fs.sat_select_rows(rcw, dup, dup),
+                     fs.sat_select_rows_plain(rcw, dup, dup)):
+        _equal(g, w_)
+
+
+def test_sat_pipeline_matches_fused(pipe, frame):
+    sat_pipe = FoveationPipeline(CFG, sampler="sat")
+    assert pipe.sampler == "fused" and sat_pipe.sampler == "sat"
+    for gaze in CENTERS:
+        c = pipe.center(*gaze)
+        assert torch.equal(sat_pipe.foveate_chw(frame, c), pipe.foveate_chw(frame, c))
+    centers = torch.tensor(CENTERS, dtype=torch.float32, device="cuda")
+    hwc = frame.permute(1, 2, 0).contiguous()
+    prepare, sample_batch = sat_pipe.batch_pair("sat")
+    assert torch.equal(
+        sample_batch(prepare(hwc), centers), pipe.sample_batch_fused(hwc, centers)
+    )
+
+
+def test_degrade_to_sat_on_the_card():
+    small = FoveaxConfig(
+        source_width=1920, source_height=1080, reduced_width=64,
+        reduced_height=36,
+    )
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    pipe = FoveationPipeline(small)
+    assert pipe.sampler == "sat"
+    with pytest.raises(ValueError, match="contract"):
+        FoveationPipeline(small, sampler="fused")
+    rng = np.random.default_rng(4)
+    frame = torch.from_numpy(rng.integers(0, 256, (1080, 1920, 3), np.uint8))
+    before = scan2d.SAT_BUILD.launches
+    got = pipe.foveate(frame.cuda(), pipe.center(0.3, 0.6))
+    torch.cuda.synchronize()
+    assert scan2d.SAT_BUILD.launches == before + 1
+    cpu = FoveationPipeline(small, device="cpu")
+    assert torch.equal(got.cpu(), cpu.foveate(frame, cpu.center(0.3, 0.6)))
+
+
+def test_sat_launches_count_once(pipe, frame):
+    c = pipe.center(0.5, 0.5)
+    sat_pipe = FoveationPipeline(CFG, sampler="sat")
+    before = (scan2d.SAT_BUILD.launches, fs.SELECT_ROWS.launches)
+    sat_pipe.foveate_chw(frame, c)
+    idx = torch.arange(0, 512, 7, dtype=torch.int32, device="cuda")
+    fs.sat_select_rows(frame.permute(1, 0, 2).contiguous(), idx, idx)
+    torch.cuda.synchronize()
+    assert scan2d.SAT_BUILD.launches - before[0] == 1
+    assert fs.SELECT_ROWS.launches - before[1] == 1
+
+
+def test_sat_wrappers_check_inputs(pipe, frame):
+    with pytest.raises(ValueError, match="frame"):
+        scan2d.sat_scan(frame.to(torch.int32), in_layout="chw")
+    with pytest.raises(ValueError, match="3 channels"):
+        scan2d.sat_scan(frame[:2], in_layout="chw")
+    with pytest.raises(ValueError, match="contiguous"):
+        scan2d.sat_scan(frame.permute(1, 2, 0), in_layout="hwc")
+    rcw = frame.permute(1, 0, 2).contiguous()
+    idx = torch.arange(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="frame_rcw"):
+        fs.sat_select_rows(frame, idx, idx)
+    with pytest.raises(ValueError, match="pyc"):
+        fs.sat_select_rows(rcw, idx.long(), idx)
+    with pytest.raises(ValueError, match="pymc"):
+        fs.sat_select_rows(rcw, idx, idx.cpu())

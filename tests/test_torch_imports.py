@@ -45,9 +45,10 @@ def test_port_and_smoke_import_neither_jax_nor_foveax():
     for name in (
         "foveax_torch.config", "foveax_torch.convert",
         "foveax_torch.core.logrect", "foveax_torch.core.sample",
-        "foveax_torch.core.unwarp", "foveax_torch.kernels.build",
-        "foveax_torch.kernels.segreduce", "foveax_torch.kernels.unwarp",
-        "foveax_torch.pipeline.frames",
+        "foveax_torch.core.sat", "foveax_torch.core.unwarp",
+        "foveax_torch.kernels.build", "foveax_torch.kernels.fused_select",
+        "foveax_torch.kernels.scan2d", "foveax_torch.kernels.segreduce",
+        "foveax_torch.kernels.unwarp", "foveax_torch.pipeline.frames",
     ):
         assert name in report["modules"]
 

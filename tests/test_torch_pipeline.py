@@ -1,6 +1,9 @@
-"""The whole slice: foveax_torch's ``FoveationPipeline(device="cpu")``
-against foveax's at 1920x512 -> 1072x288 (its roundtrip, and the fused
-foveate -> unwarp step that foveax's bench times as ``step_fused``)."""
+"""The whole port: foveax_torch's ``FoveationPipeline(device="cpu")``
+against foveax's at 1920x512 -> 1072x288: the fused path (its roundtrip,
+and the fused foveate -> unwarp step that foveax's bench times as
+``step_fused``), the SAT path (``sampler="sat"``: foveate, roundtrip,
+their batches and the serve pairs) and the degrade to SAT of a shape
+outside the fused sampler's contract."""
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +54,10 @@ def setup():
         fx=fx,
         step_fused=step_fused,
         pipe=FoveationPipeline(FoveaxConfig(**SIZE), device="cpu"),
+        fx_sat=FxPipeline(FxConfig(**SIZE), sampler="sat"),
+        pipe_sat=FoveationPipeline(
+            FoveaxConfig(**SIZE), sampler="sat", device="cpu"
+        ),
     )
 
 
@@ -103,12 +110,14 @@ def test_chw_variants_match_hwc(setup):
 
 def test_serve_pairs(setup):
     """The serve loop's device pairs: the fused sampler has no
-    gaze-independent prepare stage."""
-    pipe = setup["pipe"]
+    gaze-independent prepare stage; the SAT pair prepares one SAT per
+    frame, and its batch equals the fused pair's and foveax's SAT pair."""
+    pipe, fx_sat = setup["pipe"], setup["fx_sat"]
     frame = torch.from_numpy(setup["frame"])
     centers = torch.tensor(CENTERS, dtype=torch.float32)
     for mode in ("auto", "fused"):
         prepare, sample_batch = pipe.batch_pair(mode)
+        assert prepare(frame) is frame
         got = sample_batch(prepare(frame), centers)
         assert got.shape == (len(CENTERS), *pipe.reduced_shape)
         for i in range(len(CENTERS)):
@@ -122,8 +131,72 @@ def test_serve_pairs(setup):
     np.testing.assert_array_equal(
         sample(prepare(frame), centers[0]).numpy(), got[0].numpy()
     )
-    with pytest.raises(ValueError, match="only the fused sampler"):
-        pipe.batch_pair("sat")
+    prepare, sample_batch = pipe.batch_pair("sat")
+    sat = prepare(frame)
+    assert sat.dtype == torch.uint32 and sat.shape == (3, 512, 1920)
+    np.testing.assert_array_equal(sample_batch(sat, centers).numpy(), got.numpy())
+    fx_prepare, fx_sample_batch = fx_sat.batch_pair("sat")
+    want = fx_sample_batch(
+        fx_prepare(jnp.asarray(setup["frame"])), jnp.asarray(centers.numpy())
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="'sat' and 'fused'"):
+        pipe.batch_pair("direct")
+
+
+def test_sat_serve_pairs(setup):
+    """The SAT pipeline's pairs: ``batch_pair("auto")`` stays fused at an
+    eligible shape, ``single_pair()`` is the SAT pair, as foveax's."""
+    pipe, fx_sat = setup["pipe_sat"], setup["fx_sat"]
+    frame = torch.from_numpy(setup["frame"])
+    c = pipe.center(*CENTERS[2])
+    prepare, sample = pipe.single_pair()
+    sat = prepare(frame)
+    assert sat.dtype == torch.uint32
+    fx_prepare, fx_sample = fx_sat.single_pair()
+    want = fx_sample(fx_prepare(jnp.asarray(setup["frame"])), fx_sat.center(*CENTERS[2]))
+    np.testing.assert_array_equal(sample(sat, c).numpy(), np.asarray(want))
+    prepare, _ = pipe.batch_pair("auto")
+    assert prepare(frame) is frame
+
+
+@pytest.mark.parametrize("center", CENTERS)
+def test_sat_pipeline_matches_foveax(setup, center):
+    pipe, fx = setup["pipe_sat"], setup["fx_sat"]
+    assert pipe.sampler == fx.sampler == "sat"
+    want_red, want_out = fx.roundtrip(
+        jnp.asarray(setup["frame"]), fx.center(*center)
+    )
+    frame = torch.from_numpy(setup["frame"])
+    c = pipe.center(*center)
+    got_red, got_out = pipe.roundtrip(frame, c)
+    np.testing.assert_array_equal(got_red.numpy(), np.asarray(want_red))
+    np.testing.assert_array_equal(got_out.numpy(), np.asarray(want_out))
+    np.testing.assert_array_equal(pipe.foveate(frame, c).numpy(), got_red.numpy())
+    # The chw SAT path and the fused pipeline give the same frame.
+    chw = frame.permute(2, 0, 1).contiguous()
+    red_chw = pipe.foveate_chw(chw, c)
+    np.testing.assert_array_equal(red_chw.permute(1, 2, 0).numpy(), got_red.numpy())
+    np.testing.assert_array_equal(
+        setup["pipe"].foveate_chw(chw, c).numpy(), red_chw.numpy()
+    )
+
+
+def test_sat_batches_match_foveax(setup):
+    pipe, fx = setup["pipe_sat"], setup["fx_sat"]
+    centers = np.asarray(CENTERS, np.float32)
+    frame = setup["frame"]
+    want = fx.foveate_batch(jnp.asarray(frame), jnp.asarray(centers))
+    got = pipe.foveate_batch(torch.from_numpy(frame), torch.from_numpy(centers))
+    assert got.shape == (len(CENTERS), *pipe.reduced_shape)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want_red, want_out = fx.roundtrip_batch(jnp.asarray(frame), jnp.asarray(centers))
+    got_red, got_out = pipe.roundtrip_batch(
+        torch.from_numpy(frame), torch.from_numpy(centers)
+    )
+    assert got_out.shape == (len(CENTERS), *pipe.source_shape)
+    np.testing.assert_array_equal(got_red.numpy(), np.asarray(want_red))
+    np.testing.assert_array_equal(got_out.numpy(), np.asarray(want_out))
 
 
 def test_center_and_device(setup, monkeypatch):
@@ -137,12 +210,35 @@ def test_center_and_device(setup, monkeypatch):
         FoveationPipeline(FoveaxConfig(**SIZE))
 
 
+# A shape whose row steps (max_dy 391) overflow the fused sampler's uint16
+# row sums.
+SMALL = dict(
+    source_width=1920, source_height=1080, reduced_width=64, reduced_height=36
+)
+
+
 def test_ineligible_shape_raises():
-    """A shape whose row steps overflow the uint16 row sums raises (the
-    SAT sampler it would degrade to comes with a later slice)."""
-    cfg = FoveaxConfig(
-        source_width=256, source_height=8640, reduced_width=128,
-        reduced_height=32,
-    )
+    """An explicit "fused" on a shape outside its contract raises, as
+    foveax's does, and so does a sampler the port does not have."""
     with pytest.raises(ValueError, match="contract"):
-        FoveationPipeline(cfg, device="cpu")
+        FoveationPipeline(FoveaxConfig(**SMALL), sampler="fused", device="cpu")
+    with pytest.raises(ValueError, match="'sat' and 'fused'"):
+        FoveationPipeline(FoveaxConfig(**SMALL), sampler="direct", device="cpu")
+
+
+def test_ineligible_shape_degrades_to_sat():
+    """"auto" resolves to the SAT sampler there, and equals foveax's CPU
+    pipeline (SAT on the CPU) at that shape."""
+    pipe = FoveationPipeline(FoveaxConfig(**SMALL), device="cpu")
+    assert pipe.sampler == "sat"
+    fx = FxPipeline(FxConfig(**SMALL))
+    assert fx.sampler == "sat"
+    frame = np.random.default_rng(23).integers(0, 256, (1080, 1920, 3), np.uint8)
+    center = (0.3, 0.6)
+    want_red, want_out = fx.roundtrip(jnp.asarray(frame), fx.center(*center))
+    got_red, got_out = pipe.roundtrip(torch.from_numpy(frame), pipe.center(*center))
+    np.testing.assert_array_equal(got_red.numpy(), np.asarray(want_red))
+    np.testing.assert_array_equal(got_out.numpy(), np.asarray(want_out))
+    prepare, sample_batch = pipe.batch_pair("auto")
+    got = sample_batch(prepare(torch.from_numpy(frame)), pipe.center(*center)[None])
+    np.testing.assert_array_equal(got[0].numpy(), got_red.numpy())

@@ -1,6 +1,8 @@
-"""foveax_torch's fused sampler (plain versions of kernels K1/K2 on the
-CPU) against foveax: bit-identical to ``sample_rect_fused`` in interpret
-mode, to the SAT path and to the float64 golden.
+"""foveax_torch's samplers against foveax: the fused sampler (plain
+versions of kernels K1/K2 on the CPU) bit-identical to
+``sample_rect_fused`` in interpret mode, to the SAT path and to the
+float64 golden; the SAT sampler ``sample_rect_from_sat`` bit-identical to
+foveax's, with both tap schemes, both wrap modes and a gaze batch.
 
 The JAX references are jitted with the gaze traced, so each shape and
 wrap mode compiles once per module."""
@@ -20,6 +22,8 @@ from foveax.kernels.segreduce import sample_rect_fused as fx_fused
 from foveax.kernels.segreduce import sample_rect_fused_batch as fx_fused_batch
 from foveax_torch.convert import grid_from_numpy
 from foveax_torch.core.sample import _axis_taps
+from foveax_torch.core.sample import sample_rect_from_sat as t_sample_sat
+from foveax_torch.core.sat import build_sat as t_build_sat
 from foveax_torch.kernels import segreduce
 from foveax_torch.kernels.segreduce import (
     sample_rect_fused,
@@ -66,17 +70,19 @@ def setup():
         for wrap in (True, False)
     }
     sat_path = {
-        wrap: jax.jit(
-            lambda sat, c, wrap=wrap: sample_rect_from_sat(
-                sat, grid, c, wrap_x=wrap, out_layout="chw"
+        (wrap, taps): jax.jit(
+            lambda sat, c, wrap=wrap, taps=taps: sample_rect_from_sat(
+                sat, grid, c, wrap_x=wrap, out_layout="chw", taps=taps
             )
         )
         for wrap in (True, False)
+        for taps in ("shared", "paired")
     }
     return dict(
         frame=frame,
         frame_chw=np.ascontiguousarray(frame.transpose(2, 0, 1)),
         sat=build_sat(jnp.asarray(frame)),
+        tsat=t_build_sat(torch.from_numpy(frame)),
         grid=grid,
         tgrid=tgrid,
         fused=fused,
@@ -94,9 +100,65 @@ def test_sampler_matches_fused_and_sat(setup, center, wrap):
         out_layout="chw",
     ).numpy()
     fused = np.asarray(setup["fused"][wrap](jnp.asarray(setup["frame_chw"]), c))
-    sat = np.asarray(setup["sat_path"][wrap](setup["sat"], c))
+    sat = np.asarray(setup["sat_path"][wrap, "shared"](setup["sat"], c))
     np.testing.assert_array_equal(got, fused)
     np.testing.assert_array_equal(got, sat)
+
+
+@pytest.mark.parametrize("taps", ["shared", "paired"])
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("center", CENTERS)
+def test_sat_sampler_matches_foveax(setup, center, wrap, taps):
+    want = setup["sat_path"][wrap, taps](
+        setup["sat"], jnp.asarray(center, jnp.float32)
+    )
+    got = t_sample_sat(
+        setup["tsat"], setup["tgrid"], torch.tensor(center, dtype=torch.float32),
+        wrap_x=wrap, out_layout="chw", taps=taps,
+    )
+    assert got.dtype == torch.uint8 and got.shape == (3, OUT_H, OUT_W)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_sat_sampler_batch_matches_foveax(setup):
+    """N gazes against one SAT (a leading axis on the centres) equal
+    foveax's vmapped sample, in both output layouts."""
+    centers = np.asarray(CENTERS, np.float32)
+    grid = setup["grid"]
+    want = np.asarray(
+        jax.jit(
+            jax.vmap(lambda c: sample_rect_from_sat(setup["sat"], grid, c))
+        )(jnp.asarray(centers))
+    )
+    got = t_sample_sat(setup["tsat"], setup["tgrid"], torch.from_numpy(centers))
+    assert got.shape == (len(CENTERS), OUT_H, OUT_W, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    chw = t_sample_sat(
+        setup["tsat"], setup["tgrid"], torch.from_numpy(centers),
+        out_layout="chw",
+    )
+    np.testing.assert_array_equal(chw.numpy(), want.transpose(0, 3, 1, 2))
+
+
+def test_sat_sampler_rejects_unknown_taps(setup):
+    with pytest.raises(ValueError, match="taps"):
+        t_sample_sat(
+            setup["tsat"], setup["tgrid"], torch.tensor((0.5, 0.5)), taps="direct"
+        )
+
+
+def test_sat_sampler_on_wrapped_sat(setup):
+    """Offset by a huge constant mod 2^32, the SAT samples as before: the
+    4-tap difference is taken mod 2^32."""
+    c = torch.tensor((0.31, 0.87))
+    shifted = (setup["tsat"].numpy().astype(np.uint64) + 0xFEDCBA98) % 2**32
+    got = t_sample_sat(
+        torch.from_numpy(shifted.astype(np.uint32)), setup["tgrid"], c
+    )
+    want = setup["sat_path"][True, "shared"](setup["sat"], jnp.asarray(c.numpy()))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(want).transpose(1, 2, 0)
+    )
 
 
 def test_sampler_matches_golden(setup):
@@ -155,17 +217,30 @@ def setup_1080p():
     fused = jax.jit(
         lambda fr, c: fx_fused(fr, grid, c, out_layout="chw", interpret=True)
     )
-    return rng.integers(0, 256, (3, 1080, 1920), np.uint8), tgrid, fused
+    sat_path = jax.jit(
+        lambda sat, c: sample_rect_from_sat(sat, grid, c, out_layout="chw")
+    )
+    frame = rng.integers(0, 256, (3, 1080, 1920), np.uint8)
+    return frame, tgrid, fused, sat_path
 
 
 @pytest.mark.parametrize("center", [(0.37, 0.62), (0.999, 0.001)])
 def test_sampler_1080p(setup_1080p, center):
-    frame, tgrid, fused = setup_1080p
+    frame, tgrid, fused, _ = setup_1080p
     ref = fused(jnp.asarray(frame), jnp.asarray(center, jnp.float32))
     got = sample_rect_fused(
         torch.from_numpy(frame), tgrid, torch.tensor(center), out_layout="chw"
     )
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("center", [(0.37, 0.62), (0.999, 0.001)])
+def test_sat_sampler_1080p(setup_1080p, center):
+    frame, tgrid, _, sat_path = setup_1080p
+    sat = t_build_sat(torch.from_numpy(frame), in_layout="chw")
+    want = sat_path(jnp.asarray(sat.numpy()), jnp.asarray(center, jnp.float32))
+    got = t_sample_sat(sat, tgrid, torch.tensor(center), out_layout="chw")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize(
