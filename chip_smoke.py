@@ -9,9 +9,11 @@ Phases, each of which raises on failure (exit code 1):
    source, in parallel).
 2. Run each kernel and its plain PyTorch version on the same inputs on the
    card: they must be bit-equal (tolerance 0; uint32 SATs compared through
-   their int32 view).  The four kernels of the fused path at 1080p
-   (1920x1080 -> 1072x608) and 4K (3840x2160 -> 2144x1200), over five gazes
-   and a batch of eight for the sampler; the SAT build K5 in both input
+   their int32 view).  The three kernels of the fused path (K1, K2 and the
+   fused unwarp ``unwarp_xy``) at 1080p (1920x1080 -> 1072x608) and 4K
+   (3840x2160 -> 2144x1200), over five gazes and a batch of eight for the
+   sampler; ``unwarp_xy`` also on random in-contract vectors (a band's rows
+   staged in pieces) and at output width 1000; the SAT build K5 in both input
    layouts on random 1080p and 4K frames, all-255 4K and 8K frames (the 8K
    sums wrap past 2^32) and a 1000x37 frame; the SAT row select K6 at 1080p
    and 4K with each gaze's row taps and a list with duplicates and the
@@ -19,14 +21,17 @@ Phases, each of which raises on failure (exit code 1):
 3. Drive two 4K paths through ``FoveationPipeline``, each over a 32-frame
    gaze trace with every restored frame fed back as the next input
    (``foveate_chw`` then the fused ``unwarp_auto_chw``): the fused path
-   (K1-K4 rise by exactly 32, K5 and K6 by 0) and the SAT path,
-   ``sampler="sat"`` (K5, K3 and K4 by 32, the others by 0; every reduced
-   frame equal to the fused pipeline's on the same input).  In both the
+   (K1, K2 and ``unwarp_xy`` rise by exactly 32, K5 and K6 by 0) and the
+   SAT path, ``sampler="sat"`` (K5 and ``unwarp_xy`` by 32, the others by
+   0; every reduced frame equal to the fused pipeline's on the same
+   input).  In both the
    fovea of every roundtrip must equal its source and the first frame the
    CPU pipeline's result.  Then the serve tick's SAT pair at 4K
    (``batch_pair("sat")``, eight gazes: one K5 launch, the batch equal to
    the fused batch) and the degrade contract (1920x1080 -> 64x36, outside
-   the fused sampler's contract: "auto" runs the SAT path, "fused" raises).
+   the fused sampler's and the fused unwarp's contracts: "auto" runs the
+   SAT path and the exact unwarp, one K5 launch and no unwarp kernel, equal
+   to the CPU path; "fused" raises).
 4. Time each kernel, its plain version and, for K5, the library's two
    ``torch.cumsum`` calls at the 4K main-path shapes (CUDA events, median,
    L2 flushed between launches), and both chained paths at 1080p and 4K
@@ -72,8 +77,8 @@ SAT_FRAMES = [
 ]
 # The kernels each path launches once per frame.
 PATH_KERNELS = {
-    "fused": ("segreduce_y", "segreduce_x", "unwarp_x", "unwarp_y"),
-    "sat": ("sat_build", "unwarp_x", "unwarp_y"),
+    "fused": ("segreduce_y", "segreduce_x", "unwarp_xy"),
+    "sat": ("sat_build", "unwarp_xy"),
 }
 
 # H100 SXM data sheet: HBM bandwidth, and the float32 rate outside the
@@ -99,8 +104,8 @@ def kernel_table():
     return {
         "segreduce_y": (sr.Y_PASS, seg, "foveax/kernels/segreduce.py:251"),
         "segreduce_x": (sr.X_PASS, seg, "foveax/kernels/segreduce.py:511"),
-        "unwarp_x": (uw.X_PASS, unw, "foveax/kernels/unwarp_pl.py:264"),
-        "unwarp_y": (uw.Y_PASS, unw, "foveax/kernels/unwarp_pl.py:192"),
+        "unwarp_xy": (uw.UNWARP_XY, unw, "foveax/kernels/unwarp_pl.py:264, "
+                      "foveax/kernels/unwarp_pl.py:192"),
         "sat_build": (scan2d.SAT_BUILD, scan, "foveax/kernels/scan2d.py:51"),
         "sat_select_rows": (fs.SELECT_ROWS, scan,
                             "foveax/kernels/fused_select.py:46"),
@@ -125,12 +130,12 @@ def make_frame(pipe, seed: int) -> torch.Tensor:
 
 
 def path_cases(pipe, frame, centers):
-    """The four kernels' (wrapper, plain version, arguments, ops) at the
+    """The three kernels' (wrapper, plain version, arguments, ops) at the
     shapes the main path gives them for ``centers`` (N, 2).  Each stage's
-    input is the previous stage's kernel output; the unwarp stages use
-    the first gaze.  Ops count the integer and float work the inputs
-    need: one add per summed element, one divide per box, eight
-    operations per blended pixel."""
+    input is the previous stage's kernel output; the unwarp uses the first
+    gaze.  Ops count the integer and float work the inputs need: one add
+    per summed element, one divide per box, eight operations per blended
+    byte (the column blend over 3 x hr x W, the row blend over 3 x H x W)."""
     cases = {}
     pxc, pxmc, vx, pyc, pymc, vy = sr.fused_taps(pipe.grid, frame, centers)
     args = (frame, pymc, pyc)
@@ -144,14 +149,44 @@ def path_cases(pipe, frame, centers):
                             sr.x_segment_reduce_batch_plain, args, ops)
     reduced = sr.x_segment_reduce_batch(*args)[0]
     h, w, _ = pipe.source_shape
-    xv, yv = uw.fused_vectors(reduced.shape[1], reduced.shape[2], w, h, centers[0])
-    args = (reduced, *xv)
-    cases["unwarp_x"] = (uw.unwarp_x_pass, uw.unwarp_x_pass_plain, args,
-                         8 * 3 * reduced.shape[1] * w)
-    xb = uw.unwarp_x_pass(*args)
-    cases["unwarp_y"] = (uw.unwarp_y_pass, uw.unwarp_y_pass_plain,
-                         (xb, *yv), 8 * 3 * h * w)
+    hr = reduced.shape[1]
+    xv, yv = uw.fused_vectors(hr, reduced.shape[2], w, h, centers[0])
+    cases["unwarp_xy"] = (uw.unwarp_xy, uw.unwarp_xy_plain, (reduced, xv, yv),
+                          8 * 3 * (hr + h) * w)
     return cases
+
+
+def random_vectors(rng, n: int, size: int, device):
+    """In-contract unwarp vectors of no particular order: lo/hi anywhere in
+    [0, size), den in [1, 255], num in [0, den]."""
+    den = rng.integers(1, 256, n)
+    vecs = (rng.integers(0, size, n), rng.integers(0, size, n),
+            rng.integers(0, den + 1), den)
+    return tuple(torch.from_numpy(v.astype(np.int32)).to(device) for v in vecs)
+
+
+def unwarp_extra_cases(reduced, w: int, h: int, center):
+    """``unwarp_xy``'s arguments beyond the main path's: random vectors at
+    the path's output shape (each band's rows span far more than
+    BAND_ROWS + 1, so the kernel stages them in pieces), and output width
+    1000, not a multiple of 16, with the path's y vectors."""
+    rng = np.random.default_rng(SEED + w)
+    _, hr, wr = reduced.shape
+    dev = reduced.device
+    _, yv = uw.fused_vectors(hr, wr, w, h, center)
+    return {
+        "random vectors": (reduced, random_vectors(rng, w, wr, dev),
+                           random_vectors(rng, h, hr, dev)),
+        "width 1000": (reduced, random_vectors(rng, 1000, wr, dev), yv),
+    }
+
+
+def tensors(obj) -> list[torch.Tensor]:
+    """The tensors of a kernel's arguments or results, nested tuples
+    flattened."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [t for item in obj for t in tensors(item)]
 
 
 def as_int64(t: torch.Tensor) -> torch.Tensor:
@@ -205,8 +240,17 @@ def phase_compare(device: str, shapes=tuple(SHAPES)) -> dict[str, int]:
                 err = check_equal(name, fn(*args), plain(*args),
                                   f"at {shape}, gazes {gazes}")
                 errs[name] = max(errs.get(name, 0), err)
-        print(f"compare {shape}: {len(batches)} gaze sets, all four kernels "
-              "bit-equal to their plain versions", flush=True)
+        h, w, _ = pipe.source_shape
+        c = torch.tensor(GAZES[0], dtype=torch.float32, device=device)
+        reduced = pipe.foveate_chw(frame, c)
+        extra = unwarp_extra_cases(reduced, w, h, c)
+        for what, args in extra.items():
+            err = check_equal("unwarp_xy", uw.unwarp_xy(*args),
+                              uw.unwarp_xy_plain(*args), f"at {shape}, {what}")
+            errs["unwarp_xy"] = max(errs["unwarp_xy"], err)
+        print(f"compare {shape}: {len(batches)} gaze sets and unwarp_xy on "
+              f"{', '.join(extra)}, all three kernels bit-equal to their "
+              "plain versions", flush=True)
     return errs
 
 
@@ -371,8 +415,9 @@ def phase_serve_pair(kernels, shape: str = "4k") -> None:
 
 
 def phase_degrade(kernels) -> None:
-    """A shape outside the fused sampler's contract: "auto" resolves to
-    the SAT path and runs K5, an explicit "fused" raises."""
+    """A shape outside the fused sampler's and the fused unwarp's
+    contracts: "auto" resolves to the SAT path and runs K5, the unwarp's
+    "auto" to the exact unwarp (no kernel); an explicit "fused" raises."""
     cfg = FoveaxConfig(source_width=1920, source_height=1080,
                        reduced_width=64, reduced_height=36)
     pipe = FoveationPipeline(cfg)
@@ -386,19 +431,19 @@ def phase_degrade(kernels) -> None:
         raise AssertionError("sampler='fused' accepted an ineligible shape")
     frame = sat_frame(1920, 1080, None, "cuda")
     c = pipe.center(0.3, 0.6)
-    # The exact unwarp: this shape's delta steps exceed the fused unwarp's
-    # 255 bound.
     zero_counts(kernels)
-    got = pipe.roundtrip_chw(frame, c)
+    reduced = pipe.foveate_chw(frame, c)
+    restored = pipe.unwarp_auto_chw(reduced, c)
     launches = read_counts(kernels)
     expect_counts("degrade", launches, {"sat_build": 1})
     cpu = FoveationPipeline(cfg, device="cpu")
-    want = cpu.roundtrip_chw(frame.cpu(), c.cpu())
-    for g, w_ in zip(got, want):
+    want_red = cpu.foveate_chw(frame.cpu(), c.cpu())
+    want = (want_red, cpu.unwarp_auto_chw(want_red, c.cpu()))
+    for g, w_ in zip((reduced, restored), want):
         if not torch.equal(g.cpu(), w_):
             raise AssertionError("degraded path differs from the CPU path")
-    print(f"degrade 1920x1080 -> 64x36: auto -> sat, launches {launches}, "
-          "equal to the CPU path; fused raises", flush=True)
+    print(f"degrade 1920x1080 -> 64x36: auto -> sat and the exact unwarp, "
+          f"launches {launches}, equal to the CPU path; fused raises", flush=True)
 
 
 def time_cuda(fn, args, reps: int, flush: torch.Tensor) -> float:
@@ -453,9 +498,7 @@ def phase_timing(shape: str = "4k") -> list[dict]:
     cases.update(sat_cases(pipe, frame, centers))
     rows = []
     for name, (fn, plain, args, ops, library) in cases.items():
-        out = fn(*args)
-        outs = out if isinstance(out, tuple) else (out,)
-        nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
+        nbytes = sum(t.numel() * t.element_size() for t in tensors((args, fn(*args))))
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         row = {

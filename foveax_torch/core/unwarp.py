@@ -10,11 +10,18 @@ as a runtime tensor.
 Precisions:
   "exact" — four uint8 gathers and a float32 blend, in plain PyTorch (the
       JAX package computes it in XLA outside its kernels).
-  "fused" — the two-pass integer-weight unwarp of
-      ``foveax_torch/kernels/unwarp.py``: a column pass with round-half-up
-      and a row pass with truncation, bit-identical to the JAX package's
-      fused unwarp in its default xy order.
-  "auto"  — "fused".
+  "fused" — the integer-weight unwarp of ``foveax_torch/kernels/unwarp.py``
+      (one kernel on the card): a column pass with round-half-up and a row
+      pass with truncation, bit-identical to the JAX package's fused unwarp
+      in its default xy order.  Its contract: both axes' delta steps
+      <= 255; elsewhere it raises, as the JAX package's explicit request
+      does.
+  "auto"  — "fused" where its contract holds, "exact" elsewhere (the JAX
+      package degrades an ineligible shape the same way).  Both are
+      within 1 LSB of "exact", the JAX package's contract for "auto".
+  "mm", "fast" — the JAX package's gather-free and pair-gather
+      formulations for the TPU, with the same <= 1 LSB contract; here
+      they resolve as "auto" does.
 
 The inverse map's exponent ``ceil(0.5*rd*log(|d|/lam + 1)^0.25)`` depends
 only on the integer ``|d|``, not on the gaze.  It is tabulated once per
@@ -38,6 +45,8 @@ import torch
 
 from foveax_torch.core.logrect import delta_table, scaled_center
 from foveax_torch.core.logrect import lam as _lam
+
+PRECISIONS = ("exact", "fused", "auto", "mm", "fast")
 
 
 def u_raw_table(out_dim: int, reduced_dim: int, *, wrap: bool) -> torch.Tensor:
@@ -171,19 +180,20 @@ def unwarp_rect(
 
     ``center`` is float32 (2,) in [0, 1] on the frame's device.  Layouts:
     "hwc" (H, W, 3) or channel-planar "chw" (3, H, W).  ``precision`` is
-    "exact", "fused" or "auto" (module docstring).
+    one of :data:`PRECISIONS` (module docstring).
     """
-    if precision == "auto":
-        precision = "fused"
-    if precision == "fused":
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown unwarp precision {precision!r}")
+    if precision != "exact":
         from foveax_torch.kernels.unwarp import unwarp_rect_fused
 
-        return unwarp_rect_fused(
+        out = unwarp_rect_fused(
             reduced, out_width, out_height, center,
             in_layout=in_layout, out_layout=out_layout,
+            strict=precision == "fused",
         )
-    if precision != "exact":
-        raise ValueError(f"unknown unwarp precision {precision!r}")
+        if out is not None:
+            return out
     planar = reduced.permute(2, 0, 1) if in_layout == "hwc" else reduced
     _, hr, wr = planar.shape
     cx, cy = scaled_center(center, out_width, out_height)

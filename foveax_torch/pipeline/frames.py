@@ -6,7 +6,8 @@
     build_sat(frame)                  SAT build (kernel K5 on the card)
     sample(sat, center)               4-tap sample of a built SAT
     unwarp(reduced, center)           exact unwarp back to (H, W, 3)
-    unwarp_auto(reduced, center)      fused unwarp (the kernels)
+    unwarp_auto(reduced, center)      fused unwarp (the kernel) where its
+                                      contract holds, exact elsewhere
     roundtrip(frame, center)          foveate + exact unwarp
     foveate_batch(frame, centers)     one SAT, N gazes
     sample_batch_fused(frame, cs)     one frame, N gazes, one launch per pass
@@ -131,7 +132,8 @@ class FoveationPipeline:
         )
 
     def unwarp_auto(self, reduced, center):
-        """The fused unwarp: <= 1 LSB of exact, fovea bit-exact."""
+        """``precision="auto"``: the fused unwarp where its contract holds
+        (<= 1 LSB of exact, fovea bit-exact), the exact one elsewhere."""
         cfg = self.config
         return unwarp_rect(
             reduced, cfg.source_width, cfg.source_height, center,

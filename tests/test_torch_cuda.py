@@ -63,9 +63,31 @@ def test_unwarp_kernels_match_plain(pipe, frame, center):
     c = pipe.center(*center)
     reduced = pipe.foveate_chw(frame, c)
     xv, yv = uw.fused_vectors(288, 1072, 1920, 512, c)
-    xb = uw.unwarp_x_pass(reduced, *xv)
-    _equal(xb, uw.unwarp_x_pass_plain(reduced, *xv))
-    _equal(uw.unwarp_y_pass(xb, *yv), uw.unwarp_y_pass_plain(xb, *yv))
+    _equal(uw.unwarp_xy(reduced, xv, yv), uw.unwarp_xy_plain(reduced, xv, yv))
+
+
+def _random_vectors(rng, n: int, size: int):
+    """In-contract vectors of no particular order: lo/hi anywhere in
+    [0, size), den in [1, 255], num in [0, den]."""
+    den = rng.integers(1, 256, n)
+    vecs = (rng.integers(0, size, n), rng.integers(0, size, n),
+            rng.integers(0, den + 1), den)
+    return tuple(torch.from_numpy(v.astype(np.int32)).cuda() for v in vecs)
+
+
+@pytest.mark.parametrize("case", ["random", "odd-width"])
+def test_unwarp_xy_any_vectors(pipe, frame, case):
+    """Random vectors make a band's rows span far more than BAND_ROWS + 1,
+    so the kernel stages them in pieces; at width 1000 (not a multiple of
+    16) every store is narrow, here with the inverse map's y vectors."""
+    rng = np.random.default_rng(5)
+    reduced = pipe.foveate_chw(frame, pipe.center(0.5, 0.5))
+    if case == "random":
+        xv, yv = _random_vectors(rng, 1920, 1072), _random_vectors(rng, 512, 288)
+    else:
+        _, yv = uw.fused_vectors(288, 1072, 1920, 512, pipe.center(0.3, 0.6))
+        xv = _random_vectors(rng, 1000, 1072)
+    _equal(uw.unwarp_xy(reduced, xv, yv), uw.unwarp_xy_plain(reduced, xv, yv))
 
 
 def test_pipeline_matches_cpu(pipe, frame):
@@ -82,12 +104,12 @@ def test_pipeline_matches_cpu(pipe, frame):
 
 
 def test_each_launch_counts_once(pipe, frame):
-    kernels = (sr.Y_PASS, sr.X_PASS, uw.X_PASS, uw.Y_PASS)
+    kernels = (sr.Y_PASS, sr.X_PASS, uw.UNWARP_XY)
     before = [k.launches for k in kernels]
     c = pipe.center(0.5, 0.5)
     pipe.unwarp_auto_chw(pipe.foveate_chw(frame, c), c)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
 
 
 def test_wrappers_check_inputs(pipe, frame):
@@ -102,12 +124,18 @@ def test_wrappers_check_inputs(pipe, frame):
     rows = sr.y_segment_reduce_batch(frame, pymc, pyc)
     with pytest.raises(ValueError, match="valid_x"):
         sr.x_segment_reduce_batch(rows, pxmc, pxc, vx.int(), pymc, pyc, vy)
-    xv, _ = uw.fused_vectors(288, 1072, 1920, 512, centers[0])
+    xv, yv = uw.fused_vectors(288, 1072, 1920, 512, centers[0])
     red = torch.zeros((3, 288, 1072), dtype=torch.uint8, device="cuda")
-    with pytest.raises(ValueError, match="src"):
-        uw.unwarp_x_pass(red[:, :, ::2], *xv)
-    with pytest.raises(ValueError, match="den"):
-        uw.unwarp_x_pass(red, *xv[:3], xv[3].long())
+    with pytest.raises(ValueError, match="planar"):
+        uw.unwarp_xy(red[:, :, ::2], xv, yv)
+    with pytest.raises(ValueError, match="planar"):
+        uw.unwarp_xy(red[:2], xv, yv)
+    with pytest.raises(ValueError, match="x_den"):
+        uw.unwarp_xy(red, (*xv[:3], xv[3].long()), yv)
+    with pytest.raises(ValueError, match="y_hi"):
+        uw.unwarp_xy(red, xv, (yv[0], yv[1][:-1], *yv[2:]))
+    with pytest.raises(ValueError, match="y_lo"):
+        uw.unwarp_xy(red, xv, (yv[0].cpu(), *yv[1:]))
 
 
 @pytest.mark.parametrize(
@@ -179,6 +207,17 @@ def test_degrade_to_sat_on_the_card():
     assert scan2d.SAT_BUILD.launches == before + 1
     cpu = FoveationPipeline(small, device="cpu")
     assert torch.equal(got.cpu(), cpu.foveate(frame, cpu.center(0.3, 0.6)))
+    # Its delta steps exceed 255: "auto" unwarps exactly, with no kernel.
+    chw = frame.permute(2, 0, 1).contiguous()
+    before = (scan2d.SAT_BUILD.launches, uw.UNWARP_XY.launches)
+    c = pipe.center(0.3, 0.6)
+    out = pipe.unwarp_auto_chw(pipe.foveate_chw(chw.cuda(), c), c)
+    torch.cuda.synchronize()
+    assert (scan2d.SAT_BUILD.launches, uw.UNWARP_XY.launches) == (
+        before[0] + 1, before[1]
+    )
+    c = cpu.center(0.3, 0.6)
+    assert torch.equal(out.cpu(), cpu.unwarp_auto_chw(cpu.foveate_chw(chw, c), c))
 
 
 def test_sat_launches_count_once(pipe, frame):
