@@ -9,11 +9,15 @@ Phases, each of which raises on failure (exit code 1):
    source, in parallel).
 2. Run each kernel and its plain PyTorch version on the same inputs on the
    card: they must be bit-equal (tolerance 0; uint32 SATs compared through
-   their int32 view).  The three kernels of the fused path (K1, K2 and the
-   fused unwarp ``unwarp_xy``) at 1080p (1920x1080 -> 1072x608) and 4K
-   (3840x2160 -> 2144x1200), over five gazes and a batch of eight for the
-   sampler; ``unwarp_xy`` also on random in-contract vectors (a band's rows
-   staged in pieces) and at output width 1000; the SAT build K5 in both input
+   their int32 view).  The fused path's sampler ``segreduce_xy`` (one
+   launch for both sampler passes), the parent pair K1 and K2 it replaces,
+   and the fused unwarp ``unwarp_xy`` at 1080p (1920x1080 -> 1072x608) and
+   4K (3840x2160 -> 2144x1200), over five gazes and a batch of eight for
+   the samplers; ``segreduce_xy`` also on random in-contract taps (output
+   widths 1001 and the path's, a frame base one byte off alignment) and at
+   1000x500 -> 560x288 (a source width that is not a multiple of 16);
+   ``unwarp_xy`` also on random in-contract vectors (a band's rows staged
+   in pieces) and at output width 1000; the SAT build K5 in both input
    layouts on random 1080p and 4K frames, all-255 4K and 8K frames (the 8K
    sums wrap past 2^32) and a 1000x37 frame; the SAT row select K6 at 1080p
    and 4K with each gaze's row taps and a list with duplicates and the
@@ -21,10 +25,10 @@ Phases, each of which raises on failure (exit code 1):
 3. Drive two 4K paths through ``FoveationPipeline``, each over a 32-frame
    gaze trace with every restored frame fed back as the next input
    (``foveate_chw`` then the fused ``unwarp_auto_chw``): the fused path
-   (K1, K2 and ``unwarp_xy`` rise by exactly 32, K5 and K6 by 0) and the
-   SAT path, ``sampler="sat"`` (K5 and ``unwarp_xy`` by 32, the others by
-   0; every reduced frame equal to the fused pipeline's on the same
-   input).  In both the
+   (``segreduce_xy`` and ``unwarp_xy`` rise by exactly 32, K1, K2, K5 and
+   K6 by 0) and the SAT path, ``sampler="sat"`` (K5 and ``unwarp_xy`` by
+   32, the others by 0; every reduced frame equal to the fused pipeline's
+   on the same input).  In both the
    fovea of every roundtrip must equal its source and the first frame the
    CPU pipeline's result.  Then the serve tick's SAT pair at 4K
    (``batch_pair("sat")``, eight gazes: one K5 launch, the batch equal to
@@ -33,9 +37,15 @@ Phases, each of which raises on failure (exit code 1):
    SAT path and the exact unwarp, one K5 launch and no unwarp kernel, equal
    to the CPU path; "fused" raises).
 4. Time each kernel, its plain version and, for K5, the library's two
-   ``torch.cumsum`` calls at the 4K main-path shapes (CUDA events, median,
-   L2 flushed between launches), and both chained paths at 1080p and 4K
-   (host clock, synchronised), beside the card's name and power limit.
+   ``torch.cumsum`` calls at the 4K main-path shapes (CUDA events, median
+   of 50 launches (10 for plain and library), L2 flushed before each), in
+   two readings: ``ms`` starts the events right after the flush, so host
+   time before the launch counts; ``ms_queued`` first keeps the card busy
+   for about 0.2 ms (``torch.cuda._sleep``, its cycle count derived once
+   from a timed sleep and printed) while the host enqueues the start
+   event, the call and the end event.  Then both chained paths at 1080p
+   and 4K (host clock, synchronised), beside the card's name and power
+   limit.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -75,11 +85,16 @@ SAT_FRAMES = [
     ("8k all-255", 7680, 4320, 255),
     ("1000x37", 1000, 37, None),
 ]
+# segreduce_xy's third comparison shape: (width, height, reduced width,
+# reduced height), a source width that is not a multiple of 16.
+ODD_SHAPE = (1000, 500, 560, 288)
 # The kernels each path launches once per frame.
 PATH_KERNELS = {
-    "fused": ("segreduce_y", "segreduce_x", "unwarp_xy"),
+    "fused": ("segreduce_xy", "unwarp_xy"),
     "sat": ("sat_build", "unwarp_xy"),
 }
+# How long the card is kept busy before a queued timing's start event.
+SPIN_MS = 0.2
 
 # H100 SXM data sheet: HBM bandwidth, and the float32 rate outside the
 # tensor cores (the kernels' integer and float32 scalar work is counted
@@ -102,6 +117,8 @@ def kernel_table():
     unw = "foveax_torch/kernels/csrc/unwarp.cu"
     scan = "foveax_torch/kernels/csrc/scan2d.cu"
     return {
+        "segreduce_xy": (sr.XY_PASS, seg, "foveax/kernels/segreduce.py:251, "
+                         "foveax/kernels/segreduce.py:511"),
         "segreduce_y": (sr.Y_PASS, seg, "foveax/kernels/segreduce.py:251"),
         "segreduce_x": (sr.X_PASS, seg, "foveax/kernels/segreduce.py:511"),
         "unwarp_xy": (uw.UNWARP_XY, unw, "foveax/kernels/unwarp_pl.py:264, "
@@ -130,14 +147,21 @@ def make_frame(pipe, seed: int) -> torch.Tensor:
 
 
 def path_cases(pipe, frame, centers):
-    """The three kernels' (wrapper, plain version, arguments, ops) at the
-    shapes the main path gives them for ``centers`` (N, 2).  Each stage's
-    input is the previous stage's kernel output; the unwarp uses the first
-    gaze.  Ops count the integer and float work the inputs need: one add
-    per summed element, one divide per box, eight operations per blended
+    """The fused path's kernels and the parent pair K1, K2 as (wrapper,
+    plain version, arguments, ops) at the shapes the main path gives them
+    for ``centers`` (N, 2).  K2 takes K1's output, the unwarp
+    ``segreduce_xy``'s, for the first gaze.  Ops count the integer and
+    float work the inputs need: one add per summed element (``segreduce_xy``
+    skips invalid rows), one divide per box, eight operations per blended
     byte (the column blend over 3 x hr x W, the row blend over 3 x H x W)."""
     cases = {}
     pxc, pxmc, vx, pyc, pymc, vy = sr.fused_taps(pipe.grid, frame, centers)
+    args = (frame, pxmc, pxc, vx, pymc, pyc, vy)
+    ops = (3 * frame.shape[2] * int(((pyc - pymc) * vy).sum())
+           + 3 * pyc.shape[1] * pxc.numel())
+    cases["segreduce_xy"] = (sr.segment_reduce_xy_batch,
+                             sr.segment_reduce_xy_batch_plain, args, ops)
+    reduced = sr.segment_reduce_xy_batch(*args)[0]
     args = (frame, pymc, pyc)
     ops = 3 * frame.shape[2] * int((pyc - pymc).sum())
     cases["segreduce_y"] = (sr.y_segment_reduce_batch,
@@ -147,7 +171,6 @@ def path_cases(pipe, frame, centers):
     ops = 3 * pyc.shape[1] * int((pxc - pxmc).sum()) + pxc.numel() * 3 * pyc.shape[1]
     cases["segreduce_x"] = (sr.x_segment_reduce_batch,
                             sr.x_segment_reduce_batch_plain, args, ops)
-    reduced = sr.x_segment_reduce_batch(*args)[0]
     h, w, _ = pipe.source_shape
     hr = reduced.shape[1]
     xv, yv = uw.fused_vectors(hr, reduced.shape[2], w, h, centers[0])
@@ -179,6 +202,42 @@ def unwarp_extra_cases(reduced, w: int, h: int, center):
                            random_vectors(rng, h, hr, dev)),
         "width 1000": (reduced, random_vectors(rng, 1000, wr, dev), yv),
     }
+
+
+def random_taps(rng, n: int, m: int, dim: int, maxlen: int, device):
+    """In-contract sampler taps of no particular order: (pc, pmc, valid),
+    each (n, m), intervals of 1..maxlen overlapping, the first touching 0
+    and the last dim - 1, about a fifth invalid."""
+    pc = rng.integers(1, dim, (n, m))
+    pmc = np.maximum(pc - rng.integers(1, maxlen + 1, (n, m)), 0)
+    pc[:, 0], pmc[:, 0] = 1, 0
+    pc[:, -1], pmc[:, -1] = dim - 1, max(dim - 1 - maxlen, 0)
+    valid = rng.random((n, m)) > 0.2
+    return (torch.from_numpy(pc.astype(np.int32)).to(device),
+            torch.from_numpy(pmc.astype(np.int32)).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def xy_extra_cases(pipe, frame):
+    """``segreduce_xy``'s arguments beyond the main path's: random
+    in-contract taps (row intervals up to 257 rows, inside the plain
+    version's uint16 bound; column intervals up to the whole row) at output
+    width 1001 and at the path's shape for three gazes, the latter also on
+    a copy of the frame whose base is one byte past an aligned address."""
+    rng = np.random.default_rng(SEED + frame.shape[2])
+    _, h, w = frame.shape
+    hr, wr, _ = pipe.reduced_shape
+    dev = frame.device
+    buf = torch.empty(frame.numel() + 1, dtype=torch.uint8, device=dev)
+    offset = buf[1:].view(frame.shape).copy_(frame)
+    cases = {}
+    for what, f, n, mx, my in (("random taps, width 1001", frame, 1, 1001, 77),
+                               ("random taps, 3 gazes", frame, 3, wr, hr),
+                               ("random taps, base off by 1", offset, 3, wr, hr)):
+        pxc, pxmc, vx = random_taps(rng, n, mx, w, w - 1, dev)
+        pyc, pymc, vy = random_taps(rng, n, my, h, 257, dev)
+        cases[what] = (f, pxmc, pxc, vx, pymc, pyc, vy)
+    return cases
 
 
 def tensors(obj) -> list[torch.Tensor]:
@@ -224,14 +283,20 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> 
     return err
 
 
+def compare_extra(errs, name, fn, plain, cases, where: str) -> None:
+    for what, args in cases.items():
+        err = check_equal(name, fn(*args), plain(*args), f"at {where}, {what}")
+        errs[name] = max(errs.get(name, 0), err)
+
+
 def phase_compare(device: str, shapes=tuple(SHAPES)) -> dict[str, int]:
-    """Every kernel of the fused path against its plain version, bit for
-    bit."""
+    """Every kernel of the fused path, and K1 and K2, against its plain
+    version, bit for bit."""
     errs: dict[str, int] = {}
+    batches = [[g] for g in GAZES] + [BATCH_GAZES]
     for shape in shapes:
         pipe = make_pipeline(shape, device)
         frame = make_frame(pipe, SEED)
-        batches = [[g] for g in GAZES] + [BATCH_GAZES]
         for gazes in batches:
             centers = torch.tensor(gazes, dtype=torch.float32, device=device)
             for name, (fn, plain, args, _) in path_cases(pipe, frame, centers).items():
@@ -240,17 +305,35 @@ def phase_compare(device: str, shapes=tuple(SHAPES)) -> dict[str, int]:
                 err = check_equal(name, fn(*args), plain(*args),
                                   f"at {shape}, gazes {gazes}")
                 errs[name] = max(errs.get(name, 0), err)
+        xy_extra = xy_extra_cases(pipe, frame)
+        compare_extra(errs, "segreduce_xy", sr.segment_reduce_xy_batch,
+                      sr.segment_reduce_xy_batch_plain, xy_extra, shape)
         h, w, _ = pipe.source_shape
         c = torch.tensor(GAZES[0], dtype=torch.float32, device=device)
         reduced = pipe.foveate_chw(frame, c)
         extra = unwarp_extra_cases(reduced, w, h, c)
-        for what, args in extra.items():
-            err = check_equal("unwarp_xy", uw.unwarp_xy(*args),
-                              uw.unwarp_xy_plain(*args), f"at {shape}, {what}")
-            errs["unwarp_xy"] = max(errs["unwarp_xy"], err)
-        print(f"compare {shape}: {len(batches)} gaze sets and unwarp_xy on "
-              f"{', '.join(extra)}, all three kernels bit-equal to their "
-              "plain versions", flush=True)
+        compare_extra(errs, "unwarp_xy", uw.unwarp_xy, uw.unwarp_xy_plain,
+                      extra, shape)
+        print(f"compare {shape}: {len(batches)} gaze sets; segreduce_xy on "
+              f"{'; '.join(xy_extra)}; unwarp_xy on {'; '.join(extra)}: all "
+              "four kernels bit-equal to their plain versions", flush=True)
+
+    w, h, wr, hr = ODD_SHAPE
+    pipe = FoveationPipeline(FoveaxConfig(source_width=w, source_height=h,
+                                          reduced_width=wr, reduced_height=hr),
+                             device=device)
+    if pipe.sampler != "fused":
+        raise AssertionError(f"{w}x{h} -> {wr}x{hr} resolved to {pipe.sampler}")
+    frame = make_frame(pipe, SEED)
+    cases = {}
+    for gazes in batches:
+        centers = torch.tensor(gazes, dtype=torch.float32, device=device)
+        pxc, pxmc, vx, pyc, pymc, vy = sr.fused_taps(pipe.grid, frame, centers)
+        cases[f"gazes {gazes}"] = (frame, pxmc, pxc, vx, pymc, pyc, vy)
+    compare_extra(errs, "segreduce_xy", sr.segment_reduce_xy_batch,
+                  sr.segment_reduce_xy_batch_plain, cases, f"{w}x{h}")
+    print(f"compare {w}x{h} -> {wr}x{hr}: segreduce_xy over {len(cases)} gaze "
+          "sets, bit-equal to its plain version", flush=True)
     return errs
 
 
@@ -446,13 +529,33 @@ def phase_degrade(kernels) -> None:
           f"launches {launches}, equal to the CPU path; fused raises", flush=True)
 
 
-def time_cuda(fn, args, reps: int, flush: torch.Tensor) -> float:
+def spin_cycles(ms: float) -> int:
+    """The ``torch.cuda._sleep`` cycle count that keeps the card busy for
+    about ``ms``, from the clock rate a timed sleep shows."""
+    probe = 1_000_000
+    torch.cuda._sleep(probe)  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    return int(probe * ms / start.elapsed_time(end))
+
+
+def time_cuda(fn, args, reps: int, flush: torch.Tensor, spin: int = 0) -> float:
     """Median ms of ``fn(*args)`` over ``reps`` launches, with the L2
-    cache flushed before each (a frame arrives cold)."""
+    cache flushed before each (a frame arrives cold).  With ``spin``, the
+    card sleeps that many cycles after the flush, so that the host has
+    enqueued the start event, the call and the end event before the start
+    event fires: host time before the launch then falls outside the
+    window."""
     fn(*args)
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -496,6 +599,9 @@ def phase_timing(shape: str = "4k") -> list[dict]:
         for name, case in path_cases(pipe, frame, centers).items()
     }
     cases.update(sat_cases(pipe, frame, centers))
+    spin = spin_cycles(SPIN_MS)
+    print(f"timing {shape}: queued readings spin {spin} cycles (about "
+          f"{SPIN_MS} ms) after each flush", flush=True)
     rows = []
     for name, (fn, plain, args, ops, library) in cases.items():
         nbytes = sum(t.numel() * t.element_size() for t in tensors((args, fn(*args))))
@@ -504,13 +610,19 @@ def phase_timing(shape: str = "4k") -> list[dict]:
         row = {
             "name": name,
             "ms": time_cuda(fn, args, 50, flush),
+            "ms_queued": time_cuda(fn, args, 50, flush, spin),
             "plain_ms": time_cuda(plain, args, 10, flush),
+            "plain_ms_queued": time_cuda(plain, args, 10, flush, spin),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None if library is None else time_cuda(library, args, 10, flush),
+            "library_ms": None,
+            "library_ms_queued": None,
             "bytes": nbytes,
             "ops": ops,
         }
+        if library is not None:
+            row["library_ms"] = time_cuda(library, args, 10, flush)
+            row["library_ms_queued"] = time_cuda(library, args, 10, flush, spin)
         print(f"timing {shape}: {json.dumps(row)}", flush=True)
         rows.append(row)
     return rows
@@ -568,7 +680,8 @@ def main() -> int:
     sat_launches = phase_main_path(kernels, "sat")
     phase_serve_pair(kernels)
     phase_degrade(kernels)
-    # Each kernel's count from the run of its path; K6 is on no path.
+    # Each kernel's count from the run of its path; K1, K2 and K6 are on no
+    # path (0 in both runs).
     launches = {
         name: (fused_launches if name in PATH_KERNELS["fused"] else sat_launches)[name]
         for name in kernels
@@ -586,11 +699,9 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": errs[name],
-            "ms": timing[name]["ms"],
-            "plain_ms": timing[name]["plain_ms"],
-            "bound_ms": timing[name]["bound_ms"],
-            "bound_by": timing[name]["bound_by"],
-            "library_ms": timing[name]["library_ms"],
+            **{key: timing[name][key] for key in (
+                "ms", "ms_queued", "plain_ms", "plain_ms_queued", "bound_ms",
+                "bound_by", "library_ms", "library_ms_queued")},
         }
         for name, (_, source, replaces) in kernels.items()
     ]}))

@@ -1,21 +1,28 @@
 """Fused segment-reduce sampler (counterpart of
-``foveax/kernels/segreduce.py``): two passes, each a hand-written CUDA
-kernel (``csrc/segreduce.cu``) with a plain PyTorch twin.
+``foveax/kernels/segreduce.py``): hand-written CUDA kernels
+(``csrc/segreduce.cu``), each with a plain PyTorch twin.
 
-- K1, :func:`y_segment_reduce_batch` (replaces ``segreduce.py:_y_kernel``):
-  (3, H, W) uint8 + per-gaze row taps (N, Hr) -> (N, 3, Hr, W) uint16,
-  row j holding the sum of source rows ``(pmc[j], pc[j]]``.
-- K2, :func:`x_segment_reduce_batch` (replaces ``segreduce.py:_x_kernel``):
-  the row sums + per-gaze column taps (N, Wr) -> (N, 3, Hr, Wr) uint8, the
-  exact box mean ``floor(box / (dy*dx))``, 0 where the cell's row or
-  column is invalid.
+- :func:`segment_reduce_xy_batch`, the sampler of the fused path (replaces
+  both ``segreduce.py:_y_kernel`` and ``segreduce.py:_x_kernel`` in one
+  launch): (3, H, W) uint8 + per-gaze column taps (N, Wr) and row taps
+  (N, Hr) -> (N, 3, Hr, Wr) uint8, the exact box mean ``floor(box /
+  (dy*dx))`` over ``(pxmc, pxc]`` x ``(pymc, pyc]``, 0 where the cell's
+  row or column is invalid.  The row sums stay on chip.  Its plain version
+  is the two passes below, composed.
+- K1, :func:`y_segment_reduce_batch` (``segreduce.py:_y_kernel`` alone):
+  (3, H, W) uint8 + row taps (N, Hr) -> (N, 3, Hr, W) uint16, row j
+  holding the sum of source rows ``(pmc[j], pc[j]]``.
+- K2, :func:`x_segment_reduce_batch` (``segreduce.py:_x_kernel`` alone):
+  those row sums + column taps -> the (N, 3, Hr, Wr) uint8 box means.
 
-The results are gaze-major, so a batch's channel-planar output needs no
-copy.  Both passes are bound by bytes on the card (see the source note).
-A wrapper runs the plain version for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises.  The result is bit-identical to the JAX
-package's ``sample_rect_fused`` and to its SAT path (same box semantics:
-reference src/sat_decoder_sample_rect_kernel.cl:138-241).
+K1 and K2 are the counterparts of the JAX package's two public pass
+functions; no path of the port launches them.  The results are gaze-major,
+so a batch's channel-planar output needs no copy.  The kernels are bound
+by bytes on the card (see the source note).  A wrapper runs the plain
+version for a CPU tensor; for a CUDA tensor it launches the kernel or
+raises.  The result is bit-identical to the JAX package's
+``sample_rect_fused`` and to its SAT path (same box semantics: reference
+src/sat_decoder_sample_rect_kernel.cl:138-241).
 """
 
 from __future__ import annotations
@@ -26,10 +33,18 @@ from foveax_torch.core.logrect import LogRectGrid, scaled_center
 from foveax_torch.core.sample import _axis_taps, _exact_box_div
 from foveax_torch.kernels.build import I, P, Kernel, check_tensor
 
+XY_PASS = Kernel("segreduce", "fvx_segment_reduce_xy", [P] * 8 + [I] * 6)
 Y_PASS = Kernel("segreduce", "fvx_y_segment_reduce", [P, P, P, P, I, I, I, I])
 X_PASS = Kernel(
     "segreduce", "fvx_x_segment_reduce", [P, P, P, P, P, P, P, P, I, I, I, I]
 )
+
+# Output rows per block of ``fvx_segment_reduce_xy``.  The block loads its
+# gaze's column taps once for the band, but its rows run one after another:
+# on the H100 one row a block beat two and four (PERF.md §6).
+BAND_ROWS = 1
+# Shared memory a block may use on the card (H100: 227 KB).
+MAX_SHARED_BYTES = 232_448
 
 
 def y_segment_reduce_batch_plain(
@@ -133,6 +148,79 @@ def x_segment_reduce_batch(
     return out
 
 
+def segment_reduce_xy_batch_plain(
+    frame: torch.Tensor,
+    pxmc: torch.Tensor,
+    pxc: torch.Tensor,
+    valid_x: torch.Tensor,
+    pymc: torch.Tensor,
+    pyc: torch.Tensor,
+    valid_y: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of :func:`segment_reduce_xy_batch`: K1's plain pass,
+    then K2's."""
+    rows = y_segment_reduce_batch_plain(frame, pymc, pyc)
+    return x_segment_reduce_batch_plain(
+        rows, pxmc, pxc, valid_x, pymc, pyc, valid_y
+    )
+
+
+def xy_shared_bytes(w: int, wr: int) -> int:
+    """Shared memory of a ``fvx_segment_reduce_xy`` block, as
+    ``csrc/segreduce.cu`` lays it out: 16 warp totals, the uint32 prefix
+    over the W source columns (one pad word per 16) and the packed column
+    taps, each padded to 16 columns."""
+    return 64 + 68 * -(-w // 16) + 64 * -(-wr // 16)
+
+
+def segment_reduce_xy_batch(
+    frame: torch.Tensor,
+    pxmc: torch.Tensor,
+    pxc: torch.Tensor,
+    valid_x: torch.Tensor,
+    pymc: torch.Tensor,
+    pyc: torch.Tensor,
+    valid_y: torch.Tensor,
+) -> torch.Tensor:
+    """(3, H, W) uint8 + column taps (N, Wr) + row taps (N, Hr) ->
+    (N, 3, Hr, Wr) uint8 in one launch: the box mean over ``(pxmc, pxc]``
+    x ``(pymc, pyc]``, 0 where the cell's row or column is invalid.  The
+    taps obey the clamp rule ``1 <= pc <= dim-1``, ``0 <= pmc < pc`` on
+    each axis.  The kernel sums in uint32 (exact while 255*dy*dx < 2^32);
+    the plain version, K1's uint16 row sums, needs 255*dy < 2^16 as well
+    (:func:`fused_eligible`)."""
+    if frame.device.type == "cpu":
+        return segment_reduce_xy_batch_plain(
+            frame, pxmc, pxc, valid_x, pymc, pyc, valid_y
+        )
+    _, h, w = frame.shape
+    n, wr = pxc.shape
+    hr = pyc.shape[1]
+    dev = frame.device
+    check_tensor(frame, "frame", torch.uint8, (3, h, w), dev)
+    for name, t in (("pxc", pxc), ("pxmc", pxmc)):
+        check_tensor(t, name, torch.int32, (n, wr), dev)
+    for name, t in (("pyc", pyc), ("pymc", pymc)):
+        check_tensor(t, name, torch.int32, (n, hr), dev)
+    check_tensor(valid_x, "valid_x", torch.bool, (n, wr), dev)
+    check_tensor(valid_y, "valid_y", torch.bool, (n, hr), dev)
+    smem = xy_shared_bytes(w, wr)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"segment_reduce_xy: source width {w} and output width {wr} need "
+            f"{smem} bytes of shared memory per block, more than the card's "
+            f"{MAX_SHARED_BYTES}"
+        )
+    out = torch.empty((n, 3, hr, wr), dtype=torch.uint8, device=dev)
+    if out.numel():
+        XY_PASS.launch(
+            frame.data_ptr(), pxc.data_ptr(), pxmc.data_ptr(),
+            valid_x.data_ptr(), pyc.data_ptr(), pymc.data_ptr(),
+            valid_y.data_ptr(), out.data_ptr(), n, h, w, hr, wr, BAND_ROWS,
+        )
+    return out
+
+
 def fused_eligible(grid: LogRectGrid) -> bool:
     """The fused sampler's structural contract: every row interval's sum
     of uint8 pixels fits the uint16 row sums, 255 * max(dy) < 2^16 (the
@@ -168,16 +256,17 @@ def sample_rect_fused_batch(
     out_layout: str = "hwc",
 ) -> torch.Tensor:
     """N gazes (``centers``: (N, 2) float32 in [0, 1]) against one shared
-    frame, one launch of each kernel for the whole batch.  Returns
-    (N, Hr, Wr, 3) for "hwc", (N, 3, Hr, Wr) for "chw"."""
+    frame, one launch for the whole batch.  Returns (N, Hr, Wr, 3) for
+    "hwc", (N, 3, Hr, Wr) for "chw"."""
     if in_layout == "hwc":
         frame = frame.permute(2, 0, 1)
     frame = frame.contiguous()
     pxc, pxmc, valid_x, pyc, pymc, valid_y = fused_taps(
         grid, frame, centers, wrap_x=wrap_x
     )
-    rows = y_segment_reduce_batch(frame, pymc, pyc)
-    out = x_segment_reduce_batch(rows, pxmc, pxc, valid_x, pymc, pyc, valid_y)
+    out = segment_reduce_xy_batch(
+        frame, pxmc, pxc, valid_x, pymc, pyc, valid_y
+    )
     if out_layout == "chw":
         return out
     return out.permute(0, 2, 3, 1).contiguous()

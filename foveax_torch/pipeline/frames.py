@@ -16,11 +16,14 @@ The ``_chw`` variants take and return channel-planar (3, H, W) frames, the
 layout of the device-resident hot path.  Gaze centres are runtime tensors:
 a moving gaze rebuilds nothing.
 
-Samplers: "fused" (the segment-reduce kernels K1/K2, no SAT), "sat" (SAT
-build K5, then the 4-tap sampler) or "auto": fused where the shape is
+Samplers: "fused" (the one-launch segment-reduce kernel, no SAT), "sat"
+(SAT build K5, then the 4-tap sampler) or "auto": fused where the shape is
 inside the fused sampler's contract, SAT otherwise, on every device.  The
 two are bit-identical.  An explicit "fused" on a shape outside the
-contract raises, as the JAX package's does.
+contract raises: the port refuses it through its uint16 row-sum bound
+(:func:`fused_eligible`).  The JAX package's probe checks only its Pallas
+structure and admits some such shapes (1920x1080 -> 64x36), where its
+fused sampler wraps its uint16 row sums.
 """
 
 from __future__ import annotations

@@ -58,6 +58,66 @@ def test_sampler_kernels_match_plain(pipe, frame, batch):
     _equal(sr.x_segment_reduce_batch(*args), sr.x_segment_reduce_batch_plain(*args))
 
 
+def _xy_args(grid, frame, gazes):
+    centers = torch.tensor(gazes, dtype=torch.float32, device="cuda")
+    pxc, pxmc, vx, pyc, pymc, vy = sr.fused_taps(grid, frame, centers)
+    return frame, pxmc, pxc, vx, pymc, pyc, vy
+
+
+@pytest.mark.parametrize("gazes", [[c] for c in CENTERS] + [CENTERS],
+                         ids=[str(c) for c in CENTERS] + ["batch"])
+def test_xy_kernel_matches_plain(pipe, frame, gazes):
+    args = _xy_args(pipe.grid, frame, gazes)
+    _equal(sr.segment_reduce_xy_batch(*args), sr.segment_reduce_xy_batch_plain(*args))
+
+
+def _random_taps(rng, n: int, m: int, dim: int, maxlen: int):
+    """In-contract taps in no order: (pc, pmc, valid), each (n, m), with
+    intervals of 1..maxlen, the first touching 0 and the last dim - 1."""
+    pc = rng.integers(1, dim, (n, m))
+    pmc = np.maximum(pc - rng.integers(1, maxlen + 1, (n, m)), 0)
+    pc[:, 0], pmc[:, 0] = 1, 0
+    pc[:, -1], pmc[:, -1] = dim - 1, max(dim - 1 - maxlen, 0)
+    valid = rng.random((n, m)) > 0.2
+    return (torch.from_numpy(pc.astype(np.int32)).cuda(),
+            torch.from_numpy(pmc.astype(np.int32)).cuda(),
+            torch.from_numpy(valid).cuda())
+
+
+@pytest.mark.parametrize("n, wr, hr", [(1, 1001, 77), (3, 1072, 288)])
+@pytest.mark.parametrize("base", ["aligned", "offset"])
+def test_xy_kernel_any_taps(pipe, frame, n, wr, hr, base):
+    """Random in-contract taps (row intervals up to 257 rows, inside the
+    plain version's uint16 bound; column intervals up to the whole row),
+    an output width that is not a multiple of 16, and a frame whose base is
+    one byte past an aligned address (no row start is 16-byte aligned)."""
+    rng = np.random.default_rng(n + wr)
+    if base == "offset":
+        buf = torch.empty(frame.numel() + 1, dtype=torch.uint8, device="cuda")
+        frame = buf[1:].view(frame.shape).copy_(frame)
+    _, h, w = frame.shape
+    pxc, pxmc, vx = _random_taps(rng, n, wr, w, w - 1)
+    pyc, pymc, vy = _random_taps(rng, n, hr, h, 257)
+    args = (frame, pxmc, pxc, vx, pymc, pyc, vy)
+    _equal(sr.segment_reduce_xy_batch(*args), sr.segment_reduce_xy_batch_plain(*args))
+
+
+def test_xy_kernel_odd_width():
+    """1000x500 -> 560x288: a source width that is not a multiple of 16,
+    so row starts alternate between 16- and 8-byte alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    odd = FoveationPipeline(FoveaxConfig(
+        source_width=1000, source_height=500, reduced_width=560,
+        reduced_height=288,
+    ))
+    assert odd.sampler == "fused"
+    rng = np.random.default_rng(11)
+    frame = torch.from_numpy(rng.integers(0, 256, (3, 500, 1000), np.uint8)).cuda()
+    args = _xy_args(odd.grid, frame, CENTERS)
+    _equal(sr.segment_reduce_xy_batch(*args), sr.segment_reduce_xy_batch_plain(*args))
+
+
 @pytest.mark.parametrize("center", CENTERS)
 def test_unwarp_kernels_match_plain(pipe, frame, center):
     c = pipe.center(*center)
@@ -104,12 +164,12 @@ def test_pipeline_matches_cpu(pipe, frame):
 
 
 def test_each_launch_counts_once(pipe, frame):
-    kernels = (sr.Y_PASS, sr.X_PASS, uw.UNWARP_XY)
+    kernels = (sr.XY_PASS, sr.Y_PASS, sr.X_PASS, uw.UNWARP_XY)
     before = [k.launches for k in kernels]
     c = pipe.center(0.5, 0.5)
     pipe.unwarp_auto_chw(pipe.foveate_chw(frame, c), c)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 0, 1]
 
 
 def test_wrappers_check_inputs(pipe, frame):
@@ -124,6 +184,27 @@ def test_wrappers_check_inputs(pipe, frame):
     rows = sr.y_segment_reduce_batch(frame, pymc, pyc)
     with pytest.raises(ValueError, match="valid_x"):
         sr.x_segment_reduce_batch(rows, pxmc, pxc, vx.int(), pymc, pyc, vy)
+    xy = sr.segment_reduce_xy_batch
+    with pytest.raises(ValueError, match="frame"):
+        xy(frame.to(torch.int32), pxmc, pxc, vx, pymc, pyc, vy)
+    with pytest.raises(ValueError, match="frame: must be contiguous"):
+        xy(frame.transpose(1, 2).contiguous().transpose(1, 2), pxmc, pxc, vx,
+           pymc, pyc, vy)
+    with pytest.raises(ValueError, match="pxmc"):
+        xy(frame, pxmc[:, :-1], pxc, vx, pymc, pyc, vy)
+    with pytest.raises(ValueError, match="valid_x"):
+        xy(frame, pxmc, pxc, vx.int(), pymc, pyc, vy)
+    with pytest.raises(ValueError, match="pymc"):
+        xy(frame, pxmc, pxc, vx, pymc.long(), pyc, vy)
+    with pytest.raises(ValueError, match="pyc"):
+        xy(frame, pxmc, pxc, vx, pymc, pyc.cpu(), vy)
+    with pytest.raises(ValueError, match="valid_y"):
+        xy(frame, pxmc, pxc, vx, pymc, pyc, vy[:, :-1])
+    wide = torch.zeros((3, 2, 60000), dtype=torch.uint8, device="cuda")
+    one = torch.ones((1, 8), dtype=torch.int32, device="cuda")
+    zero, ok = torch.zeros_like(one), torch.ones_like(one, dtype=torch.bool)
+    with pytest.raises(ValueError, match="source width 60000"):
+        xy(wide, zero, one, ok, zero, one, ok)
     xv, yv = uw.fused_vectors(288, 1072, 1920, 512, centers[0])
     red = torch.zeros((3, 288, 1072), dtype=torch.uint8, device="cuda")
     with pytest.raises(ValueError, match="planar"):

@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from foveax.config import FoveaxConfig as FxConfig
+from foveax.core.logrect import make_grid as fx_make_grid
+from foveax.core.sample import sample_rect_from_sat as fx_sample_sat
+from foveax.core.sat import build_sat as fx_build_sat
 from foveax.kernels.segreduce import sample_rect_fused as fx_sample_fused
 from foveax.kernels.unwarp_pl import unwarp_rect_fused as fx_unwarp_fused
 from foveax.pipeline import FoveationPipeline as FxPipeline
@@ -218,8 +221,10 @@ SMALL = dict(
 
 
 def test_ineligible_shape_raises():
-    """An explicit "fused" on a shape outside its contract raises, as
-    foveax's does, and so does a sampler the port does not have."""
+    """An explicit "fused" on a shape outside its contract raises: the
+    port refuses it through its uint16 row-sum bound (foveax's probe admits
+    it, and its fused sampler wraps there).  A sampler the port does not
+    have raises too."""
     with pytest.raises(ValueError, match="contract"):
         FoveationPipeline(FoveaxConfig(**SMALL), sampler="fused", device="cpu")
     with pytest.raises(ValueError, match="'sat' and 'fused'"):
@@ -242,3 +247,24 @@ def test_ineligible_shape_degrades_to_sat():
     prepare, sample_batch = pipe.batch_pair("auto")
     got = sample_batch(prepare(torch.from_numpy(frame)), pipe.center(*center)[None])
     np.testing.assert_array_equal(got[0].numpy(), got_red.numpy())
+
+
+def test_ineligible_shape_saturated_edge_gaze():
+    """At an edge gaze with an all-255 frame, where valid row boxes reach
+    dy = 268 and foveax's fused sampler wraps its uint16 row sums, the
+    port's "auto" (the SAT path) equals foveax's SAT sampler: every valid
+    cell 255, every invalid one 0."""
+    pipe = FoveationPipeline(FoveaxConfig(**SMALL), device="cpu")
+    assert pipe.sampler == "sat"
+    frame = np.full((1080, 1920, 3), 255, np.uint8)
+    center = (0.5, 0.0)
+    grid = fx_make_grid(64, 36, 1920, 1080)
+    want = np.asarray(
+        fx_sample_sat(
+            fx_build_sat(jnp.asarray(frame)), grid,
+            jnp.asarray(center, jnp.float32),
+        )
+    )
+    got = pipe.foveate(torch.from_numpy(frame), pipe.center(*center)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert set(np.unique(got)) == {0, 255}

@@ -1,5 +1,6 @@
-"""foveax_torch's samplers against foveax: the fused sampler (plain
-versions of kernels K1/K2 on the CPU) bit-identical to
+"""foveax_torch's samplers against foveax: the fused sampler (on the CPU,
+the plain version of ``segment_reduce_xy_batch``: K1's and K2's plain
+passes composed) bit-identical to
 ``sample_rect_fused`` in interpret mode, to the SAT path and to the
 float64 golden; the SAT sampler ``sample_rect_from_sat`` bit-identical to
 foveax's, with both tap schemes, both wrap modes and a gaze batch.
@@ -302,6 +303,45 @@ def test_x_pass_plain_divides_exactly():
             want = box // (4 * (pxc[g, i] - pxmc[g, i]))
             want = np.where(vy[g][None, :] & vx[g, i], want, 0)
             np.testing.assert_array_equal(got[g, :, :, i], want)
+
+
+def _random_taps(rng, n: int, m: int, dim: int, maxlen: int):
+    """(pc, pmc, valid), each (n, m), obeying the clamp rule: intervals of
+    1..maxlen in no order, overlapping, the first touching 0 and the last
+    dim - 1, about a fifth invalid."""
+    pc = rng.integers(1, dim, (n, m))
+    pmc = np.maximum(pc - rng.integers(1, maxlen + 1, (n, m)), 0)
+    pc[:, 0], pmc[:, 0] = 1, 0
+    pc[:, -1], pmc[:, -1] = dim - 1, max(dim - 1 - maxlen, 0)
+    valid = rng.random((n, m)) > 0.2
+    return pc.astype(np.int32), pmc.astype(np.int32), valid
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_xy_pass_plain_is_the_box_mean(n):
+    """The fused sampler's one-launch function against a direct numpy box
+    sum per cell, on random in-contract taps (tolerance 0)."""
+    rng = np.random.default_rng(10 + n)
+    h, w, hr, wr = 41, 37, 13, 17
+    frame = rng.integers(0, 256, (3, h, w), np.uint8)
+    pxc, pxmc, vx = _random_taps(rng, n, wr, w, w - 1)
+    pyc, pymc, vy = _random_taps(rng, n, hr, h, h - 1)
+    t = torch.from_numpy
+    got = segreduce.segment_reduce_xy_batch(
+        t(frame), t(pxmc), t(pxc), t(vx), t(pymc), t(pyc), t(vy)
+    ).numpy()
+    assert got.dtype == np.uint8 and got.shape == (n, 3, hr, wr)
+    want = np.zeros_like(got)
+    for g in range(n):
+        for j in range(hr):
+            for i in range(wr):
+                if not (vx[g, i] and vy[g, j]):
+                    continue
+                box = frame[:, pymc[g, j] + 1 : pyc[g, j] + 1,
+                            pxmc[g, i] + 1 : pxc[g, i] + 1]
+                rect = (pyc[g, j] - pymc[g, j]) * (pxc[g, i] - pxmc[g, i])
+                want[g, :, j, i] = box.astype(np.int64).sum((1, 2)) // rect
+    np.testing.assert_array_equal(got, want)
 
 
 def test_ineligible_grid_raises():
