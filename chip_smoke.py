@@ -19,9 +19,11 @@ Phases, each of which raises on failure (exit code 1):
    ``unwarp_xy`` also on random in-contract vectors (a band's rows staged
    in pieces) and at output width 1000; the SAT build K5 in both input
    layouts on random 1080p and 4K frames, all-255 4K and 8K frames (the 8K
-   sums wrap past 2^32) and a 1000x37 frame; the SAT row select K6 at 1080p
-   and 4K with each gaze's row taps and a list with duplicates and the
-   first and last rows.
+   sums wrap past 2^32) and 1000x37, 1x1, 17x1 and 1001x70 frames; the
+   SAT row select K6 at 1080p and 4K with each gaze's row taps, a list
+   with duplicates and the first and last rows, n = 1, duplicates across a
+   band boundary, and a pyc list reaching row H-1 beside a pymc list that
+   ends in the first band.
 3. Drive two 4K paths through ``FoveationPipeline``, each over a 32-frame
    gaze trace with every restored frame fed back as the next input
    (``foveate_chw`` then the fused ``unwarp_auto_chw``): the fused path
@@ -43,7 +45,9 @@ Phases, each of which raises on failure (exit code 1):
    time before the launch counts; ``ms_queued`` first keeps the card busy
    for about 0.2 ms (``torch.cuda._sleep``, its cycle count derived once
    from a timed sleep and printed) while the host enqueues the start
-   event, the call and the end event.  Then both chained paths at 1080p
+   event, the call and the end event; then the SAT path's plain-torch
+   sampler ``sample_rect_from_sat`` alone at 4K (``ms_queued`` and the
+   bytes it must move; not a kernel).  Then both chained paths at 1080p
    and 4K (host clock, synchronised), beside the card's name and power
    limit.
 
@@ -84,6 +88,9 @@ SAT_FRAMES = [
     ("4k all-255", 3840, 2160, 255),
     ("8k all-255", 7680, 4320, 255),
     ("1000x37", 1000, 37, None),
+    ("1x1", 1, 1, None),
+    ("17x1", 17, 1, None),
+    ("1001x70", 1001, 70, None),
 ]
 # segreduce_xy's third comparison shape: (width, height, reduced width,
 # reduced height), a source width that is not a multiple of 16.
@@ -376,6 +383,16 @@ def phase_compare_sat(errs: dict[str, int]) -> None:
         hand = torch.tensor([0, 0, 1, h // 2, h // 2, h // 2, h - 1, h - 1],
                             dtype=torch.int32, device="cuda")
         lists.append(("duplicates and rows 0, H-1", hand, hand))
+        r = scan2d.BAND_ROWS
+        for what, hi, lo in (
+            ("n = 1", [h // 2], [h // 3]),
+            ("duplicates across a band boundary", [r - 1, r - 1, r, r, 2 * r],
+             [r - 2, r - 1, r - 1, r, r]),
+            ("pyc to H-1, pymc in the first band", [1, 2, h - 1], [0, 1, 3]),
+        ):
+            hi, lo = (torch.tensor(v, dtype=torch.int32, device="cuda")
+                      for v in (hi, lo))
+            lists.append((what, hi, lo))
         for what, pyc, pymc in lists:
             got = fs.sat_select_rows(rcw, pyc, pymc)
             want = fs.sat_select_rows_plain(rcw, pyc, pymc)
@@ -625,7 +642,24 @@ def phase_timing(shape: str = "4k") -> list[dict]:
             row["library_ms_queued"] = time_cuda(library, args, 10, flush, spin)
         print(f"timing {shape}: {json.dumps(row)}", flush=True)
         rows.append(row)
+    time_sat_sampler(pipe, frame, centers[0], flush, spin, shape)
     return rows
+
+
+def time_sat_sampler(pipe, frame, center, flush, spin: int, shape: str) -> None:
+    """The SAT path's plain-torch 4-tap sampler (``sample_rect_from_sat``)
+    on its own: ``ms_queued`` as the kernels', and the bytes it must move
+    at least (the four uint32 SAT taps of every output value read once,
+    the uint8 frame written once).  Not a kernel: not in the kernels
+    line."""
+    sat = scan2d.sat_scan(frame, in_layout="chw")
+    hr, wr, _ = pipe.reduced_shape
+    row = {
+        "name": "sample_rect_from_sat",
+        "ms_queued": time_cuda(pipe.sample_chw, (sat, center), 50, flush, spin),
+        "bytes": 4 * 3 * hr * wr * 4 + 3 * hr * wr,
+    }
+    print(f"timing {shape}: {json.dumps(row)}", flush=True)
 
 
 def phase_path_fps(shape: str, sampler: str) -> float:

@@ -1,7 +1,7 @@
 """Fused SAT build + row selection (counterpart of
 ``foveax/kernels/fused_select.py``): K6, a hand-written CUDA kernel
-(``csrc/scan2d.cu``, beside K5 whose column pass it shares), with its
-plain PyTorch twin.
+(``csrc/scan2d.cu``, beside K5, whose band totals, carry and band scan it
+shares), with its plain PyTorch twin.
 
 K6, :func:`sat_select_rows` (replaces ``fused_select.py:_make_kernel``):
 an (H, 3, W) uint8 frame and two row lists -> the SAT rows ``pyc[j]`` and
@@ -11,9 +11,13 @@ TPU's 4-row DMA tiling; here there are three.
 
 As in the JAX package, no pipeline path calls it: it is a standalone
 function.  For a CUDA tensor the row lists must be non-decreasing and in
-[0, H) (the kernel walks them with two cursors; the wrapper does not check
-that on the device, which would cost a synchronisation).  The plain
-version, which the CPU runs, does not need the order.
+[0, H) (the kernel finds each band's entries by binary search; the
+wrapper does not check that on the device, which would cost a
+synchronisation).  The kernel
+scans only the bands up to ``max(pyc[-1], pymc[-1])`` that hold a listed
+row, writes each listed row once and copies it to the rest of its run of
+duplicates in a fourth launch.  The plain version, which the CPU runs,
+does not need the order.
 """
 
 from __future__ import annotations
@@ -21,9 +25,9 @@ from __future__ import annotations
 import torch
 
 from foveax_torch.kernels.build import I, P, Kernel, check_tensor
-from foveax_torch.kernels.scan2d import sat_scan_plain
+from foveax_torch.kernels.scan2d import sat_plan, sat_scan_plain
 
-SELECT_ROWS = Kernel("scan2d", "fvx_sat_select_rows", [P, P, P, P, I, I, I])
+SELECT_ROWS = Kernel("scan2d", "fvx_sat_select_rows", [P] * 5 + [I] * 6)
 
 
 def sat_select_rows_plain(
@@ -60,8 +64,11 @@ def sat_select_rows(
     check_tensor(pymc, "pymc", torch.int32, (n,), dev)
     sel = torch.empty((2, n, 3, w), dtype=torch.uint32, device=dev)
     if sel.numel():
+        plan = sat_plan(h, w)
+        totals = torch.empty(plan.scratch_words, dtype=torch.uint32, device=dev)
         SELECT_ROWS.launch(
             frame_rcw.data_ptr(), pyc.data_ptr(), pymc.data_ptr(),
-            sel.data_ptr(), h, w, n,
+            sel.data_ptr(), totals.data_ptr(), h, w, n, plan.band_rows,
+            plan.threads, plan.chunks_per_thread,
         )
     return sel[0], sel[1]

@@ -5,8 +5,11 @@ PyTorch twin.
 K5, :func:`sat_scan` (replaces ``scan2d.py:_sat_kernel`` via
 ``build_sat_pallas``): a (H, W, 3) or (3, H, W) uint8 frame -> the (3, H,
 W) inclusive SAT mod 2^32, stored as ``torch.uint32`` (the JAX package's
-dtype and bits).  Unlike the TPU kernel it takes any H and W: there is no
-128-lane or 8-row block constraint.
+dtype and bits).  Unlike the TPU kernel it takes any H and W up to
+:data:`MAX_WIDTH`: there is no 128-lane or 8-row block constraint.  The
+kernel works by row bands (band totals, their carry down the bands, then
+one scan per band that writes the SAT once); :func:`sat_plan` lays out
+its launch, and K6 (``kernels/fused_select.py``) shares it.
 
 PyTorch stores ``uint32`` but does little arithmetic on it, and int32
 arithmetic would wrap at 2^31, which the sums of a bright frame a little
@@ -18,13 +21,68 @@ CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from foveax_torch.kernels.build import I, P, Kernel, check_tensor
 
-SAT_BUILD = Kernel("scan2d", "fvx_sat_build", [P, I, I, I, P, I, I])
+SAT_BUILD = Kernel("scan2d", "fvx_sat_build", [P, I, I, I, P, P] + [I] * 5)
 
 MASK32 = 0xFFFFFFFF
+
+# Rows of a band: the unit of the carry down the frame and of one scanning
+# block.  Taller bands mean fewer, longer blocks and less band-total
+# scratch; shorter ones more blocks in flight but a longer carry scan.
+# Chosen on the H100 at 4K from scripts/sat_band_sweep.py (PERF.md §6):
+# 3 * 68 = 204 scanning blocks, one wave at two blocks an SM.
+BAND_ROWS = 32
+CHUNK = 16          # columns a thread owns per chunk
+MAX_THREADS = 512   # threads of a scanning block, which spans the row
+MAX_CHUNKS_PER_THREAD = 4
+MAX_WIDTH = MAX_THREADS * MAX_CHUNKS_PER_THREAD * CHUNK  # 32,768
+# Shared memory a block may use on the card (H100: 227 KB).
+MAX_SHARED_BYTES = 232_448
+
+
+class SatPlan(NamedTuple):
+    """The host-side launch plan of K5 and K6 (``csrc/scan2d.cu``)."""
+
+    band_rows: int
+    chunks_per_thread: int
+    threads: int
+    step_rows: int  # rows a scanning step keeps in registers
+    scratch_words: int  # uint32 band totals, (3, bands - 1, W padded to 16)
+    shared_bytes: int  # dynamic shared memory of a scanning block
+    launches: int  # CUDA launches a K5 call makes (K6: one more)
+
+
+def sat_plan(h: int, w: int, *, column_stride: int = 1) -> SatPlan:
+    """The launch plan for an H x W frame whose columns lie
+    ``column_stride`` bytes apart (1 for planes, 3 for interleaved
+    pixels), as ``csrc/scan2d.cu`` lays it out.  Raises ValueError, naming
+    the width, for a frame wider than a block can span."""
+    if not 1 <= w <= MAX_WIDTH:
+        raise ValueError(
+            f"SAT kernels: frame width {w} is outside what a scanning block "
+            f"spans: 1 to {MAX_WIDTH} columns"
+        )
+    chunks = -(-w // CHUNK)
+    k = 1
+    while chunks > k * MAX_THREADS:
+        k *= 2
+    threads = -(-(-(-chunks // k)) // 32) * 32  # ceil(chunks / k), to a warp
+    step = max((4 if column_stride == 1 else 2) // k, 1)
+    bands = -(-h // BAND_ROWS)
+    # Words: the warp totals of two steps, each warp's staging buffer (20
+    # words per 16 columns), K6's two row tables (see csrc/scan2d.cu).
+    shared = 4 * (2 * step * (MAX_THREADS // 32) + threads * k * 20
+                  + 2 * (BAND_ROWS + 1))
+    return SatPlan(
+        band_rows=BAND_ROWS, chunks_per_thread=k, threads=threads,
+        step_rows=step, scratch_words=3 * (bands - 1) * chunks * CHUNK,
+        shared_bytes=shared, launches=1 if bands == 1 else 3,
+    )
 
 
 def low32(x: torch.Tensor) -> torch.Tensor:
@@ -62,8 +120,13 @@ def sat_scan(frame: torch.Tensor, *, in_layout: str = "hwc") -> torch.Tensor:
     out = torch.empty((3, h, w), dtype=torch.uint32, device=frame.device)
     if out.numel():
         c_stride, r_stride, x_stride = chw.stride()
+        plan = sat_plan(h, w, column_stride=x_stride)
+        totals = torch.empty(
+            plan.scratch_words, dtype=torch.uint32, device=frame.device
+        )
         SAT_BUILD.launch(
             frame.data_ptr(), c_stride, r_stride, x_stride, out.data_ptr(),
-            h, w,
+            totals.data_ptr(), h, w, plan.band_rows, plan.threads,
+            plan.chunks_per_thread,
         )
     return out

@@ -328,3 +328,70 @@ def test_sat_wrappers_check_inputs(pipe, frame):
         fs.sat_select_rows(rcw, idx.long(), idx)
     with pytest.raises(ValueError, match="pymc"):
         fs.sat_select_rows(rcw, idx, idx.cpu())
+
+
+def _sat_frame(h: int, w: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, (3, h, w), np.uint8)).cuda()
+
+
+@pytest.mark.parametrize(
+    "h, w",
+    [(scan2d.BAND_ROWS * 3 + 5, 256), (1, 1), (1, 17), (70, 1001), (2, 40000 // 3)],
+    ids=["h-not-band-multiple", "1x1", "1x17", "width-1001", "k2-width"],
+)
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_sat_build_edge_shapes(pipe, h, w, layout):
+    """Heights that are not a multiple of the band, a single row, widths
+    that are not a multiple of 16, and a width that takes two chunks a
+    thread (13,333 columns)."""
+    chw = _sat_frame(h, w, h * w)
+    frame = chw if layout == "chw" else chw.permute(1, 2, 0).contiguous()
+    _equal(scan2d.sat_scan(frame, in_layout=layout), scan2d.sat_scan_plain(chw))
+
+
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_sat_build_unaligned_base(pipe, layout):
+    """A frame whose base is one byte past an aligned address: no row or
+    pixel window starts on a 16-byte boundary."""
+    chw = _sat_frame(75, 640, 9)
+    src = chw if layout == "chw" else chw.permute(1, 2, 0).contiguous()
+    buf = torch.empty(src.numel() + 1, dtype=torch.uint8, device="cuda")
+    frame = buf[1:].view(src.shape).copy_(src)
+    assert frame.data_ptr() % 16 == 1
+    _equal(scan2d.sat_scan(frame, in_layout=layout), scan2d.sat_scan_plain(chw))
+
+
+def test_sat_build_8k_wraps(pipe):
+    """All-255 8K: the sums wrap past 2^32 (corner 8,460,288,000 mod
+    2^32)."""
+    h, w = 4320, 7680
+    chw = torch.full((3, h, w), 255, dtype=torch.uint8, device="cuda")
+    got = scan2d.sat_scan(chw.permute(1, 2, 0).contiguous(), in_layout="hwc")
+    _equal(got, scan2d.sat_scan_plain(chw))
+    assert int(scan2d.as_int64(got[:, -1, -1])[0]) == 255 * h * w % 2**32
+
+
+def _select_lists(h: int):
+    r = scan2d.BAND_ROWS
+    last = -(-h // r) - 1  # the last band
+    return {
+        "n=1": ([h // 2], [h // 3]),
+        "first-and-last-band": ([0, 1, r - 1, last * r, h - 1],
+                                [0, 0, 2, last * r + 1, h - 2]),
+        "duplicates-straddle-band": ([r - 1, r - 1, r, r, r, 2 * r - 1],
+                                     [r - 2, r - 1, r - 1, r, r, r]),
+        "max-far-above": ([1, 2, h - 1], [0, 1, 3]),
+    }
+
+
+@pytest.mark.parametrize("case", list(_select_lists(300)))
+def test_select_rows_lists(pipe, case):
+    h, w = 300, 1001
+    pyc, pymc = _select_lists(h)[case]
+    rcw = _sat_frame(h, w, 21).permute(1, 0, 2).contiguous()
+    pyc = torch.tensor(pyc, dtype=torch.int32, device="cuda")
+    pymc = torch.tensor(pymc, dtype=torch.int32, device="cuda")
+    for g, w_ in zip(fs.sat_select_rows(rcw, pyc, pymc),
+                     fs.sat_select_rows_plain(rcw, pyc, pymc)):
+        _equal(g, w_)

@@ -15,7 +15,7 @@ from foveax.kernels.fused_select import sat_select_rows as fx_select_rows
 from foveax.kernels.scan2d import build_sat_pallas
 from foveax_torch.core.sat import build_sat, decode_sat
 from foveax_torch.kernels import scan2d
-from foveax_torch.kernels.fused_select import sat_select_rows
+from foveax_torch.kernels.fused_select import SELECT_ROWS, sat_select_rows
 
 torch.set_num_threads(1)
 
@@ -135,3 +135,41 @@ def test_select_rows_plain_needs_no_order():
     hi, lo = sat_select_rows(rcw, torch.from_numpy(pyc), torch.from_numpy(pyc[::-1].copy()))
     np.testing.assert_array_equal(hi.numpy(), sat[:, pyc].transpose(1, 0, 2))
     np.testing.assert_array_equal(lo.numpy(), sat[:, pyc[::-1]].transpose(1, 0, 2))
+
+
+@pytest.mark.parametrize("column_stride", [1, 3], ids=["chw", "hwc"])
+@pytest.mark.parametrize("h, w", [(1080, 1920), (2160, 3840), (4320, 7680),
+                                  (8640, 15360)], ids=["1080p", "4k", "8k", "16k"])
+def test_sat_plan_fits_the_card(h, w, column_stride):
+    """The host-side launch plan of K5/K6: a scanning block spans the row
+    within 512 threads, its dynamic shared memory fits the card's 227 KB,
+    and the band-total scratch holds every band but the last."""
+    plan = scan2d.sat_plan(h, w, column_stride=column_stride)
+    assert plan.shared_bytes <= scan2d.MAX_SHARED_BYTES
+    assert plan.threads % 32 == 0 and plan.threads <= scan2d.MAX_THREADS
+    assert plan.threads * plan.chunks_per_thread * scan2d.CHUNK >= w
+    assert (plan.threads - 32) * plan.chunks_per_thread * scan2d.CHUNK < w
+    assert plan.step_rows >= 1 and plan.launches == 3
+    bands = -(-h // plan.band_rows)
+    assert plan.scratch_words == 3 * (bands - 1) * -(-w // 16) * 16
+
+
+def test_sat_plan_one_band_launches_once():
+    plan = scan2d.sat_plan(scan2d.BAND_ROWS, 17)
+    assert (plan.launches, plan.scratch_words, plan.threads) == (1, 0, 32)
+
+
+def test_sat_wrappers_raise_before_launch_past_max_width():
+    """A frame wider than a scanning block spans is refused, with its
+    width in the message, before anything is launched (meta tensors reach
+    the kernel branch of the wrappers without a card)."""
+    w = scan2d.MAX_WIDTH + 16
+    before = (scan2d.SAT_BUILD.launches, SELECT_ROWS.launches)
+    frame = torch.empty((2, w, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match=f"width {w}"):
+        scan2d.sat_scan(frame, in_layout="hwc")
+    rcw = torch.empty((2, 3, w), dtype=torch.uint8, device="meta")
+    idx = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match=f"width {w}"):
+        sat_select_rows(rcw, idx, idx)
+    assert (scan2d.SAT_BUILD.launches, SELECT_ROWS.launches) == before
