@@ -50,6 +50,24 @@ Phases, each of which raises on failure (exit code 1):
    bytes it must move; not a kernel).  Then both chained paths at 1080p
    and 4K (host clock, synchronised), beside the card's name and power
    limit.
+5. Serve on the card at 1920x1080 -> 1072x608: the port's ``FoveaxServer``
+   and ``FoveaxClient`` through an in-memory connection pair
+   (:func:`memory_pair`, asyncio queues), the wire codec resolved as the
+   server resolves ``wire_codec="auto"`` (h264 where the port's codec shim
+   builds, else jpeg).  One session of 8 frames over a 4-gaze trace
+   (``sampler="auto"`` resolves to fused: ``segreduce_xy`` and
+   ``unwarp_xy`` +8 each, every other kernel +0), then a 4-client broadcast
+   channel of 6 ticks, with ``batch_sampler="fused"`` (one
+   ``segreduce_xy`` launch per served tick) and ``"sat"`` (one K5 launch
+   per tick, then the plain 4-tap sampler); ``unwarp_xy`` once per frame a
+   client restores.  Every reduced frame the server hands an encoder must
+   equal the CPU pipeline's ``foveate`` of the same source frame at the
+   gaze its ``FrameMeta`` echoes, and every restored frame the CPU
+   pipeline's ``unwarp_auto`` of the decoded reduced frame (tolerance 0).
+   Prints the clients' receive/decode/unwarp ms, the server's gaze-apply
+   median and, timed alone, the client's restore step by step (host copy,
+   copy to the card, ``unwarp_auto``, readback), beside the card's name
+   and power limit.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -59,6 +77,7 @@ no result.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import statistics
 import subprocess
@@ -68,7 +87,8 @@ import time
 import numpy as np
 import torch
 
-from foveax_torch import FoveaxConfig, FoveationPipeline
+from foveax_torch import FoveaxClient, FoveaxConfig, FoveaxServer, FoveationPipeline
+from foveax_torch.io.video import SyntheticReader
 from foveax_torch.kernels import fused_select as fs
 from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
@@ -435,7 +455,8 @@ def zero_counts(kernels) -> None:
 
 
 def read_counts(kernels) -> dict[str, int]:
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return {name: k.launches for name, (k, _, _) in kernels.items()}
 
 
@@ -687,6 +708,317 @@ def phase_path_fps(shape: str, sampler: str) -> float:
     return fps
 
 
+SERVE_FRAMES = 8
+SERVE_GAZES = [(0.5, 0.5), (0.3, 0.4), (0.7, 0.6), (0.2, 0.8)]
+BROADCAST_CLIENTS = 4
+BROADCAST_TICKS = 6
+# Seconds a serve run may take before it counts as hung.
+SERVE_TIMEOUT_S = 300.0
+
+
+class MemoryConnection:
+    """One end of an in-memory connection: what the server's ``handle`` and
+    the client's ``run_on`` need of a websocket (``send``, ``close``, async
+    iteration over incoming messages).  ``close`` ends the iteration on both
+    ends once the messages sent before it are consumed; sending after
+    either end closed raises."""
+
+    _CLOSED = object()
+
+    def __init__(self, inbox: asyncio.Queue, outbox: asyncio.Queue):
+        self._inbox, self._outbox = inbox, outbox
+        self.peer: MemoryConnection | None = None
+        self.closed = False
+
+    async def send(self, message) -> None:
+        if self.closed or self.peer.closed:
+            raise ConnectionResetError("in-memory connection closed")
+        self._outbox.put_nowait(message)
+
+    async def close(self, code: int = 1000, reason: str = "") -> None:
+        if not self.closed:
+            self.closed = True
+            self._outbox.put_nowait(self._CLOSED)
+            self._inbox.put_nowait(self._CLOSED)
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self):
+        message = await self._inbox.get()
+        if message is self._CLOSED:
+            self._inbox.put_nowait(message)  # later reads end too
+            raise StopAsyncIteration
+        return message
+
+
+def memory_pair() -> tuple[MemoryConnection, MemoryConnection]:
+    """(server end, client end) of one in-memory connection."""
+    a, b = asyncio.Queue(), asyncio.Queue()
+    server_end, client_end = MemoryConnection(a, b), MemoryConnection(b, a)
+    server_end.peer, client_end.peer = client_end, server_end
+    return server_end, client_end
+
+
+class CapturingServer(FoveaxServer):
+    """A server that keeps each reduced frame it hands an encoder."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.encoded: list[np.ndarray] = []
+
+    def _make_encoder(self, cfg, bitrate=None):
+        enc = super()._make_encoder(cfg, bitrate)
+        encode = enc.encode
+
+        def recording_encode(frame):
+            self.encoded.append(np.array(frame))
+            return encode(frame)
+
+        enc.encode = recording_encode
+        return enc
+
+
+class CapturingClient(FoveaxClient):
+    """A client that keeps each decoded reduced frame and each restored
+    frame with its ``FrameMeta``."""
+
+    def __init__(self, *args, **kwargs):
+        self.decoded: list[np.ndarray] = []
+        self.restored: list = []
+        self.unwarp_ms: list[float] = []  # per frame, in arrival order
+        super().__init__(*args, frame_sink=lambda f, m: self.restored.append((f, m)),
+                         **kwargs)
+        record = self.stats.record
+
+        def recording(gaze_idx, recv, dec, unw):
+            self.unwarp_ms.append(unw)
+            record(gaze_idx, recv, dec, unw)
+
+        self.stats.record = recording
+
+    def _make_decoder(self, *args):
+        dec = super()._make_decoder(*args)
+        decode = dec.decode
+
+        def recording_decode(sample):
+            out = decode(sample)
+            if out is not None:
+                self.decoded.append(out)
+            return out
+
+        dec.decode = recording_decode
+        return dec
+
+
+async def _serve_one(server, client):
+    """One client on its own session; the client stops at its
+    ``max_frames``."""
+    server_end, client_end = memory_pair()
+    handler = asyncio.create_task(server.handle(server_end))
+    try:
+        return await asyncio.wait_for(client.run_on(client_end), SERVE_TIMEOUT_S)
+    finally:
+        await client_end.close()
+        await asyncio.wait_for(handler, SERVE_TIMEOUT_S)
+
+
+async def _serve_channel(server, clients, spec: str):
+    """Clients on one broadcast channel: run until the channel has served
+    its ``max_frames`` ticks, then close every connection."""
+    pairs = [memory_pair() for _ in clients]
+    handlers = [asyncio.create_task(server.handle(s)) for s, _ in pairs]
+    runs = [asyncio.create_task(c.run_on(e)) for c, (_, e) in zip(clients, pairs)]
+
+    async def channel_done():
+        while spec not in server.channels:
+            await asyncio.sleep(0.005)
+        await server.channels[spec].task
+
+    try:
+        await asyncio.wait_for(channel_done(), SERVE_TIMEOUT_S)
+    finally:
+        for s, _ in pairs:
+            await s.close()
+        stats = await asyncio.wait_for(asyncio.gather(*runs), SERVE_TIMEOUT_S)
+        await asyncio.wait_for(asyncio.gather(*handlers), SERVE_TIMEOUT_S)
+    return stats
+
+
+def synthetic_frames(spec: str, n: int) -> list[np.ndarray]:
+    reader = SyntheticReader.from_spec(spec)
+    return [reader.read() for _ in range(n)]
+
+
+def check_served(cfg, server, clients, sources, what: str) -> int:
+    """Hold what the card served to the CPU pipeline, tolerance 0: every
+    reduced frame the server encoded is the CPU ``foveate`` of its source
+    frame at the gaze one received frame's ``FrameMeta`` echoes (one to
+    one), and every restored frame the CPU ``unwarp_auto`` of the decoded
+    reduced frame at that gaze.  Returns the frames checked."""
+    cpu = FoveationPipeline(cfg, device="cpu")
+    expected = []
+    for k, client in enumerate(clients):
+        if len(client.decoded) != len(client.restored):
+            raise AssertionError(f"{what} client {k}: {len(client.decoded)} "
+                                 f"decoded, {len(client.restored)} restored")
+        for i, ((full, meta), decoded) in enumerate(zip(client.restored, client.decoded)):
+            center = torch.tensor([meta.centerX, meta.centerY], dtype=torch.float32)
+            source = torch.from_numpy(sources[meta.frameNum])
+            expected.append(cpu.foveate(source, center).numpy().tobytes())
+            want = cpu.unwarp_auto(torch.from_numpy(np.ascontiguousarray(decoded)), center)
+            if full.shape != want.shape or not np.array_equal(full, want.numpy()):
+                raise AssertionError(f"{what} client {k} frame {i}: restored frame "
+                                     "differs from the CPU unwarp_auto")
+    if sorted(f.tobytes() for f in server.encoded) != sorted(expected):
+        raise AssertionError(f"{what}: the {len(server.encoded)} reduced frames "
+                             f"encoded differ from the CPU foveate of the "
+                             f"{len(expected)} frames received")
+    return len(expected)
+
+
+def serve_session(cfg, device, kernels=None):
+    """One session, ``SERVE_FRAMES`` frames over the 4-gaze trace.  Returns
+    (server, client, launches read around the run)."""
+    w, h = cfg.source_width, cfg.source_height
+    spec = f"synthetic://{w}x{h}@30/{SERVE_FRAMES}"
+    server = CapturingServer(cfg, max_frames=SERVE_FRAMES, device=device)
+    client = CapturingClient(
+        "memory", video=spec, config=cfg, max_frames=SERVE_FRAMES, device=device,
+        gaze_source=lambda i: SERVE_GAZES[i % len(SERVE_GAZES)],
+    )
+    if kernels:
+        zero_counts(kernels)
+    asyncio.run(_serve_one(server, client))
+    launches = read_counts(kernels) if kernels else {}
+    if client.stats.frames != SERVE_FRAMES:
+        raise AssertionError(f"session: client restored {client.stats.frames} "
+                             f"of {SERVE_FRAMES} frames")
+    check_served(cfg, server, [client], synthetic_frames(spec, SERVE_FRAMES), "session")
+    return server, client, launches
+
+
+def serve_broadcast(cfg, device, batch_sampler: str, kernels=None):
+    """``BROADCAST_CLIENTS`` clients, each at its own gaze, on one channel
+    of ``BROADCAST_TICKS`` ticks.  Returns (server, clients, launches)."""
+    w, h = cfg.source_width, cfg.source_height
+    spec = f"synthetic://{w}x{h}@30/{BROADCAST_TICKS}"
+    server = CapturingServer(cfg, max_frames=BROADCAST_TICKS, broadcast=True,
+                             batch_sampler=batch_sampler, device=device)
+    clients = [
+        CapturingClient("memory", video=spec, config=cfg, device=device,
+                        gaze_source=lambda i, g=g: g)
+        for g in SERVE_GAZES[:BROADCAST_CLIENTS]
+    ]
+    if kernels:
+        zero_counts(kernels)
+    asyncio.run(_serve_channel(server, clients, spec))
+    launches = read_counts(kernels) if kernels else {}
+    if server.channels:
+        raise AssertionError(f"broadcast {batch_sampler}: channel not torn down")
+    if not all(c.stats.frames for c in clients):
+        raise AssertionError(f"broadcast {batch_sampler}: frames per client "
+                             f"{[c.stats.frames for c in clients]}")
+    check_served(cfg, server, clients, synthetic_frames(spec, BROADCAST_TICKS),
+                 f"broadcast {batch_sampler}")
+    return server, clients, launches
+
+
+def served_ticks(clients) -> int:
+    """Ticks at which at least one client was served (decimation may skip
+    a member's tick, never a whole channel's frame read)."""
+    return len({m.frameNum for c in clients for _, m in c.restored})
+
+
+def serve_expected(batch_sampler, clients) -> dict[str, int]:
+    """The launches a serve run must show: ``batch_sampler`` None for a
+    session (the fused sampler once per frame), else the broadcast
+    channel's (one fused launch per served tick, or one K5 launch per tick
+    read); ``unwarp_xy`` once per frame the clients restored."""
+    frames = sum(c.stats.frames for c in clients)
+    if batch_sampler is None:
+        return {"segreduce_xy": frames, "unwarp_xy": frames}
+    if batch_sampler == "fused":
+        return {"segreduce_xy": served_ticks(clients), "unwarp_xy": frames}
+    return {"sat_build": BROADCAST_TICKS, "unwarp_xy": frames}
+
+
+def serve_timings(server, clients) -> str:
+    """The clients' ``ClientStats.averages()`` (mean over clients), their
+    per-frame unwarp ms (the first frame apart: it loads the kernel's
+    library) and the server's gaze-apply median, host clock."""
+    avg = {}
+    for key in ("avg_receive_ms", "avg_decode_ms", "avg_unwarp_ms"):
+        avg[key] = statistics.mean(c.stats.averages()[key] for c in clients)
+    later = [ms for c in clients for ms in c.unwarp_ms[1:]]
+    avg["unwarp_ms_first"] = statistics.mean(c.unwarp_ms[0] for c in clients)
+    avg["unwarp_ms_median_after_first"] = statistics.median(later) if later else None
+    gaze = statistics.median(server.gaze_apply_ms) if server.gaze_apply_ms else None
+    return json.dumps({**avg, "server_gaze_apply_ms_median": gaze})
+
+
+def time_client_unwarp(cfg, client, reps: int = 20) -> str:
+    """The client's restore of one served frame on its own, no server
+    running, in the client's steps: the host copy that makes the decoded
+    frame contiguous, its copy to the card with the gaze, ``unwarp_auto``
+    (synchronised) and the readback; medians over ``reps`` calls (host
+    clock)."""
+    pipe = FoveationPipeline(cfg)
+    decoded, (_, meta) = client.decoded[-1], client.restored[-1]
+    parts = {"host_copy_ms": [], "to_device_ms": [], "unwarp_ms": [],
+             "readback_ms": []}
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        host = np.ascontiguousarray(decoded)
+        t1 = time.perf_counter()
+        reduced = torch.from_numpy(host).to(pipe.device)
+        center = torch.tensor([meta.centerX, meta.centerY], dtype=torch.float32)
+        center = center.to(pipe.device)
+        t2 = time.perf_counter()
+        full = pipe.unwarp_auto(reduced, center)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        full.cpu().numpy()
+        t4 = time.perf_counter()
+        for key, ms in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key].append(ms * 1e3)
+    out = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    out["decoded_strides"] = list(decoded.strides)
+    return json.dumps(out)
+
+
+def phase_serve(kernels) -> None:
+    """The streaming server and client on the card (module docstring,
+    phase 5)."""
+    cfg = FoveaxConfig()
+    server, client, launches = serve_session(cfg, None, kernels)
+    print(f"serve wire codec: {server.wire_codec} (wire_codec='auto')", flush=True)
+    # Which gazes a frame carries depends on when the client's requests
+    # land against the server's 30 fps tick; a paced session on the card
+    # applies them within a tick.
+    gazes = sorted({(m.centerX, m.centerY) for _, m in client.restored})
+    if len(gazes) < 2:
+        raise AssertionError(f"serve session: gaze updates never applied, {gazes}")
+    expect_counts("serve session", launches, serve_expected(None, [client]))
+    print(f"serve session {cfg.source_width}x{cfg.source_height} -> "
+          f"{cfg.reduced_width}x{cfg.reduced_height}: {client.stats.frames} frames, "
+          f"{len(gazes)} gazes {gazes}, launches {launches}, reduced and restored "
+          f"frames equal to the CPU path; timings {serve_timings(server, [client])}",
+          flush=True)
+    print(f"serve client unwarp alone (no server running): "
+          f"{time_client_unwarp(cfg, client)}", flush=True)
+    for batch_sampler in ("fused", "sat"):
+        server, clients, launches = serve_broadcast(cfg, None, batch_sampler, kernels)
+        expect_counts(f"serve broadcast {batch_sampler}", launches,
+                      serve_expected(batch_sampler, clients))
+        print(f"serve broadcast {batch_sampler}: {len(clients)} clients, "
+              f"{BROADCAST_TICKS} ticks ({served_ticks(clients)} served), frames "
+              f"per client {[c.stats.frames for c in clients]}, launches "
+              f"{launches}, equal to the CPU path; timings "
+              f"{serve_timings(server, clients)}", flush=True)
+    print(f"serve card: {card_line()}", flush=True)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -724,6 +1056,7 @@ def main() -> int:
     for shape in SHAPES:
         for sampler in PATH_KERNELS:
             phase_path_fps(shape, sampler)
+    phase_serve(kernels)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {

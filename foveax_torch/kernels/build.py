@@ -122,7 +122,8 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
 
 class Kernel:
     """One exported C launcher: its library, its signature and a count of
-    the launches made through it."""
+    the launches made through it (counted under a lock: the server
+    launches from executor threads)."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source = source
@@ -130,6 +131,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        self._count_lock = threading.Lock()
 
     def launch(self, *args) -> None:
         """Launch on the current CUDA stream; raise on a launch error."""
@@ -144,7 +146,8 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol}: CUDA launch failed with error {err}"
             )
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 P = ctypes.c_void_p

@@ -1,6 +1,7 @@
 """The CUDA kernels of foveax_torch on the card: each wrapper against its
 plain version (tolerance 0, the SAT compared through its int32 view), its
-input checks and its launch count; the SAT pipeline against the fused one.
+input checks and its launch count; the SAT pipeline against the fused one;
+the streaming server and client on the card.
 
 These tests need a CUDA device and skip without one.  On the card, run
 
@@ -13,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from foveax_torch import FoveaxConfig, FoveationPipeline
+from foveax_torch.io.wirecodec import available_wire_codecs
 from foveax_torch.kernels import fused_select as fs
 from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
@@ -395,3 +398,24 @@ def test_select_rows_lists(pipe, case):
     for g, w_ in zip(fs.sat_select_rows(rcw, pyc, pymc),
                      fs.sat_select_rows_plain(rcw, pyc, pymc)):
         _equal(g, w_)
+
+
+@pytest.mark.parametrize("batch_sampler", [None, "fused", "sat"],
+                         ids=["session", "broadcast-fused", "broadcast-sat"])
+def test_serve_loopback_on_card(pipe, batch_sampler):
+    """The port's server and client on the card at 1920x1080 -> 1072x608
+    through chip_smoke.py's in-memory connection pair: the served reduced
+    and restored frames equal to the CPU pipeline's (tolerance 0) and the
+    kernels launched once per served frame or tick."""
+    if "h264" not in available_wire_codecs():
+        pytest.importorskip("cv2")  # wire_codec="auto" is then jpeg
+    kernels = chip_smoke.kernel_table()
+    cfg = FoveaxConfig()
+    if batch_sampler is None:
+        _, client, launches = chip_smoke.serve_session(cfg, "cuda", kernels)
+        clients = [client]
+    else:
+        _, clients, launches = chip_smoke.serve_broadcast(cfg, "cuda", batch_sampler,
+                                                          kernels)
+    chip_smoke.expect_counts("serve", launches,
+                             chip_smoke.serve_expected(batch_sampler, clients))

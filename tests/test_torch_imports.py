@@ -49,13 +49,53 @@ def test_port_and_smoke_import_neither_jax_nor_foveax():
         "foveax_torch.kernels.build", "foveax_torch.kernels.fused_select",
         "foveax_torch.kernels.scan2d", "foveax_torch.kernels.segreduce",
         "foveax_torch.kernels.unwarp", "foveax_torch.pipeline.frames",
+        "foveax_torch.serve.protocol", "foveax_torch.serve.gazepred",
+        "foveax_torch.serve.server", "foveax_torch.serve.client",
+        "foveax_torch.io.mux", "foveax_torch.io.video",
+        "foveax_torch.io.wirecodec", "foveax_torch.native",
     ):
         assert name in report["modules"]
 
 
+_WITHOUT_OPTIONAL = """
+import importlib, json, pkgutil, sys
+import numpy
+for blocked in ("websockets", "cv2"):
+    sys.modules[blocked] = None  # importing it raises ImportError
+import foveax_torch
+names = [m.name for m in pkgutil.walk_packages(foveax_torch.__path__, "foveax_torch.")]
+for name in names:
+    importlib.import_module(name)
+from foveax_torch import FoveaxServer
+from foveax_torch.io.video import encode_jpeg
+server = FoveaxServer(device="cpu", wire_codec="jpeg")
+try:
+    encode_jpeg(numpy.zeros((8, 8, 3), "uint8"))
+    jpeg = "encoded"
+except RuntimeError as e:
+    jpeg = str(e)
+print(json.dumps({"modules": len(names), "jpeg": jpeg}))
+"""
+
+
+def test_port_imports_without_websockets_or_cv2():
+    """Every module imports, and the server constructs, where neither
+    ``websockets`` nor ``cv2`` imports (the card's host need not have
+    them); JPEG then raises as the JAX package's does without OpenCV.
+    Nothing here builds the native shim, so FFmpeg's headers are never
+    asked for."""
+    out = subprocess.run(
+        [sys.executable, "-c", _WITHOUT_OPTIONAL], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["modules"] > 0
+    assert report["jpeg"] == "OpenCV not available for JPEG encode"
+
+
 def test_smoke_source_imports():
-    """chip_smoke.py names only the standard library, numpy, torch and
-    foveax_torch."""
+    """chip_smoke.py names only the standard library (asyncio for the
+    serve phase's in-memory connection), numpy, torch and foveax_torch."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     roots = set()
     for node in ast.walk(tree):
@@ -64,7 +104,7 @@ def test_smoke_source_imports():
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
     assert roots <= {
-        "__future__", "json", "statistics", "subprocess", "sys", "time",
+        "__future__", "asyncio", "json", "statistics", "subprocess", "sys", "time",
         "numpy", "torch", "foveax_torch",
     }, roots
 
