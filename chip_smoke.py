@@ -68,6 +68,26 @@ Phases, each of which raises on failure (exit code 1):
    median and, timed alone, the client's restore step by step (host copy,
    copy to the card, ``unwarp_auto``, readback), beside the card's name
    and power limit.
+6. SVD serving on the card at 1920x1080 -> 1072x608, rank 30, gop 30
+   (``sat_compression="svd"``): a session of 4 frames with the client's
+   local gaze over the 4-gaze trace (frame 0 a sync sample, frames 1-3
+   deltas; K5 +4, ``unwarp_xy`` +4, every other kernel +0), then a
+   2-client broadcast channel of 4 ticks (K5 once per tick read,
+   ``unwarp_xy`` once per frame restored).  Every SAT the server packed
+   must equal the CPU ``build_sat`` of its source frame, every blob the CPU
+   ``compress_sat`` and packer of that SAT, every client's reduced frame
+   the CPU ``SvdDecoder``'s on the same blob at the same gaze, and every
+   restored frame the CPU ``unwarp_auto`` of it (tolerance 0).  Prints the
+   server's compress+pack ms and blob bytes and the clients' decode and
+   unwarp ms.
+7. The math off the main path on the card at 1080p, against the CPU port
+   on the same inputs: the logrect point sampler, the 360 SAT sampler, the
+   scatter expansion, the log-polar sample, pyramid and pyramid sample
+   bit-equal; the log-polar blur and unwarp by the share of pixels more
+   than 1 LSB off, gnomonic at 1280x720 by the share of pixels that
+   differ, the metrics of a frame against its SAT-path restore by their
+   absolute difference, each inside a stated bound.  Host ms of each on
+   the card, synchronised.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -88,7 +108,13 @@ import numpy as np
 import torch
 
 from foveax_torch import FoveaxClient, FoveaxConfig, FoveaxServer, FoveationPipeline
+from foveax_torch.core import gnomonic, logpolar, metrics
+from foveax_torch.core import sample as core_sample
+from foveax_torch.core.logrect import make_point_grid
+from foveax_torch.core.sat import build_sat
+from foveax_torch.core.svd_sat import compress_sat, sat_to_numpy
 from foveax_torch.io.video import SyntheticReader
+from foveax_torch.serve.client import SvdDecoder
 from foveax_torch.kernels import fused_select as fs
 from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
@@ -761,11 +787,20 @@ def memory_pair() -> tuple[MemoryConnection, MemoryConnection]:
 
 
 class CapturingServer(FoveaxServer):
-    """A server that keeps each reduced frame it hands an encoder."""
+    """A server that keeps each reduced frame it hands an encoder and, in
+    SVD mode, each SAT it packs with the blob and the pack's host ms."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.encoded: list[np.ndarray] = []
+        self.svd_packed: list[tuple[np.ndarray, bytes, bool, float]] = []
+
+    def _pack_svd(self, packer, sat):
+        t0 = time.perf_counter()
+        blob, is_sync = super()._pack_svd(packer, sat)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.svd_packed.append((sat_to_numpy(sat), blob, is_sync, ms))
+        return blob, is_sync
 
     def _make_encoder(self, cfg, bitrate=None):
         enc = super()._make_encoder(cfg, bitrate)
@@ -785,6 +820,7 @@ class CapturingClient(FoveaxClient):
 
     def __init__(self, *args, **kwargs):
         self.decoded: list[np.ndarray] = []
+        self.svd_decoded: list = []  # (blob, gaze, reduced tensor or None)
         self.restored: list = []
         self.unwarp_ms: list[float] = []  # per frame, in arrival order
         super().__init__(*args, frame_sink=lambda f, m: self.restored.append((f, m)),
@@ -805,6 +841,18 @@ class CapturingClient(FoveaxClient):
             out = decode(sample)
             if out is not None:
                 self.decoded.append(out)
+            return out
+
+        dec.decode = recording_decode
+        return dec
+
+    def _make_svd_decoder(self, cfg):
+        dec = super()._make_svd_decoder(cfg)
+        decode = dec.decode
+
+        def recording_decode(sample, gaze):
+            out = decode(sample, gaze)
+            self.svd_decoded.append((sample, gaze, out))
             return out
 
         dec.decode = recording_decode
@@ -1019,6 +1067,282 @@ def phase_serve(kernels) -> None:
     print(f"serve card: {card_line()}", flush=True)
 
 
+SVD_FRAMES = 4  # session frames: one sync sample, then deltas
+SVD_CLIENTS = 2
+SVD_TICKS = 4
+
+
+def check_svd_served(cfg, server, clients, sources, what: str) -> int:
+    """Hold an SVD serve run to the CPU port, tolerance 0: every SAT the
+    server packed is the CPU ``build_sat`` of a source frame, in frame
+    order; every blob is what the CPU ``compress_sat`` and a fresh packer
+    make of those SATs in turn; every blob a client received is one the
+    server packed; every client's reduced frame is the CPU
+    :class:`SvdDecoder`'s on the same blobs at the same gazes; and every
+    restored frame the CPU ``unwarp_auto`` of that reduced frame at that
+    gaze.  Returns the frames restored."""
+    cpu = FoveationPipeline(cfg, device="cpu")
+    cpu_sats = [build_sat(torch.from_numpy(f)) for f in sources]
+    packer = server._make_svd_packer()
+    blobs, k = set(), 0
+    for i, (sat, blob, is_sync, _) in enumerate(server.svd_packed):
+        while k < len(cpu_sats) and not np.array_equal(sat, sat_to_numpy(cpu_sats[k])):
+            k += 1
+        if k == len(cpu_sats):
+            raise AssertionError(f"{what}: packed SAT {i} is no source frame's "
+                                 "CPU SAT in frame order")
+        want = packer.pack(compress_sat(cpu_sats[k], cfg.svd_rank))
+        if (blob, is_sync) != want:
+            raise AssertionError(f"{what}: blob {i} differs from the CPU "
+                                 "compress_sat and packer")
+        blobs.add(blob)
+        k += 1
+    restored = 0
+    for c, client in enumerate(clients):
+        dec = SvdDecoder(cfg, torch.device("cpu"))
+        reduced = []
+        for j, (blob, gaze, got) in enumerate(client.svd_decoded):
+            if blob not in blobs:
+                raise AssertionError(f"{what} client {c}: blob {j} was not packed")
+            want = dec.decode(blob, gaze)
+            if (got is None) != (want is None) or (
+                want is not None and not torch.equal(got.cpu(), want)
+            ):
+                raise AssertionError(f"{what} client {c} blob {j}: reduced frame "
+                                     "differs from the CPU decoder's")
+            if want is not None:
+                reduced.append((want, gaze))
+        if len(reduced) != len(client.restored):
+            raise AssertionError(f"{what} client {c}: {len(reduced)} decoded, "
+                                 f"{len(client.restored)} restored")
+        for (want, gaze), (full, _) in zip(reduced, client.restored):
+            center = torch.tensor(gaze, dtype=torch.float32)
+            if not np.array_equal(full, cpu.unwarp_auto(want, center).numpy()):
+                raise AssertionError(f"{what} client {c}: restored frame differs "
+                                     "from the CPU unwarp_auto")
+        restored += len(reduced)
+    return restored
+
+
+def serve_svd_session(cfg, device, kernels=None):
+    """One SVD session of ``SVD_FRAMES`` frames, the client's local gaze
+    over the 4-gaze trace.  Returns (server, client, launches)."""
+    w, h = cfg.source_width, cfg.source_height
+    spec = f"synthetic://{w}x{h}@30/{SVD_FRAMES}"
+    server = CapturingServer(cfg, max_frames=SVD_FRAMES, sat_compression="svd",
+                             device=device)
+    client = CapturingClient(
+        "memory", video=spec, config=cfg, max_frames=SVD_FRAMES, device=device,
+        gaze_source=lambda i: SERVE_GAZES[i % len(SERVE_GAZES)],
+    )
+    if kernels:
+        zero_counts(kernels)
+    asyncio.run(_serve_one(server, client))
+    launches = read_counts(kernels) if kernels else {}
+    if client.stats.frames != SVD_FRAMES:
+        raise AssertionError(f"svd session: client restored {client.stats.frames} "
+                             f"of {SVD_FRAMES} frames")
+    syncs = [p[2] for p in server.svd_packed]
+    if syncs != [True] + [False] * (SVD_FRAMES - 1):
+        raise AssertionError(f"svd session: sync flags {syncs}")
+    check_svd_served(cfg, server, [client], synthetic_frames(spec, SVD_FRAMES),
+                     "svd session")
+    return server, client, launches
+
+
+def serve_svd_broadcast(cfg, device, kernels=None):
+    """``SVD_CLIENTS`` clients, each at its own local gaze, on one SVD
+    channel of ``SVD_TICKS`` ticks.  Returns (server, clients, launches)."""
+    w, h = cfg.source_width, cfg.source_height
+    spec = f"synthetic://{w}x{h}@30/{SVD_TICKS}"
+    server = CapturingServer(cfg, max_frames=SVD_TICKS, broadcast=True,
+                             sat_compression="svd", device=device)
+    clients = [
+        CapturingClient("memory", video=spec, config=cfg, device=device,
+                        gaze_source=lambda i, g=g: g)
+        for g in SERVE_GAZES[1:1 + SVD_CLIENTS]
+    ]
+    if kernels:
+        zero_counts(kernels)
+    asyncio.run(_serve_channel(server, clients, spec))
+    launches = read_counts(kernels) if kernels else {}
+    if server.channels:
+        raise AssertionError("svd broadcast: channel not torn down")
+    if not all(c.stats.frames for c in clients):
+        raise AssertionError(f"svd broadcast: frames per client "
+                             f"{[c.stats.frames for c in clients]}")
+    check_svd_served(cfg, server, clients, synthetic_frames(spec, SVD_TICKS),
+                     "svd broadcast")
+    return server, clients, launches
+
+
+def svd_expected(clients, builds: int) -> dict[str, int]:
+    """An SVD run's launches: K5 once per source frame read, ``unwarp_xy``
+    once per frame the clients restored, nothing else."""
+    return {"sat_build": builds,
+            "unwarp_xy": sum(c.stats.frames for c in clients)}
+
+
+def svd_timings(server, clients) -> str:
+    """The server's compress+pack ms per blob (host clock, the SAT's
+    readback included), the blob bytes (sync, delta) and the clients'
+    ``ClientStats`` decode and unwarp means."""
+    packed = server.svd_packed
+    out = {
+        "compress_pack_ms": [round(p[3], 3) for p in packed],
+        "blob_bytes_sync": [len(p[1]) for p in packed if p[2]],
+        "blob_bytes_delta": [len(p[1]) for p in packed if not p[2]],
+    }
+    for key in ("avg_decode_ms", "avg_unwarp_ms"):
+        out[key] = statistics.mean(c.stats.averages()[key] for c in clients)
+    return json.dumps(out)
+
+
+def phase_svd(kernels) -> None:
+    """SVD serving on the card (module docstring, phase 6)."""
+    cfg = FoveaxConfig()
+    server, client, launches = serve_svd_session(cfg, None, kernels)
+    expect_counts("svd session", launches, svd_expected([client], SVD_FRAMES))
+    print(f"svd session {cfg.source_width}x{cfg.source_height} -> "
+          f"{cfg.reduced_width}x{cfg.reduced_height}, rank {cfg.svd_rank}, gop "
+          f"{cfg.gop_size}: {client.stats.frames} frames, launches {launches}, "
+          f"SATs, blobs, reduced and restored frames equal to the CPU port; "
+          f"{svd_timings(server, [client])}", flush=True)
+    server, clients, launches = serve_svd_broadcast(cfg, None, kernels)
+    expect_counts("svd broadcast", launches, svd_expected(clients, SVD_TICKS))
+    print(f"svd broadcast: {len(clients)} clients, {SVD_TICKS} ticks, frames per "
+          f"client {[c.stats.frames for c in clients]}, launches {launches}, "
+          f"equal to the CPU port; {svd_timings(server, clients)}", flush=True)
+    print(f"svd card: {card_line()}", flush=True)
+
+
+MATH_GAZE = (0.3, 0.4)
+VIEWPORT = (1280, 720)
+PYRAMID_LEVELS = 4
+# Bounds of the float math on the card against the CPU port: the share of
+# pixels more than 1 LSB off (blur, log-polar unwarp), the share of
+# viewport pixels that differ (gnomonic: the card's atan/asin/atan2/sin/cos
+# are not the CPU's), and |card - CPU| of the metrics.
+MAX_SHARE_OVER_1LSB = 1e-3
+MAX_GNOMONIC_SHARE = 1e-2
+MAX_PSNR_DB_DIFF = 1e-3
+MAX_SSIM_DIFF = 1e-4
+
+
+def math_exact(cfg, dev, frame, reduced, c):
+    """The integer-exact math off the main path at ``cfg``'s shapes on
+    ``dev``: name -> zero-argument call."""
+    w, h = cfg.source_width, cfg.source_height
+    wr, hr = cfg.reduced_width, cfg.reduced_height
+    grid = FoveationPipeline(cfg, device=dev).grid
+    point = make_point_grid(wr, hr, w, h, dev)
+    lpg = logpolar.make_logpolar_grid(wr, hr, w, h, device=dev)
+    sat = build_sat(frame)
+    pyr = logpolar.build_pyramid(frame, PYRAMID_LEVELS)
+    return {
+        "sample_rect_point": lambda: core_sample.sample_rect_point(frame, point, c),
+        "sample_rect_360_from_sat": lambda: core_sample.sample_rect_360_from_sat(
+            sat, grid, c),
+        "expand_sampled_rect": lambda: core_sample.expand_sampled_rect(
+            reduced, w, h, c),
+        "sample_logpolar": lambda: logpolar.sample_logpolar(frame, lpg, c),
+        "build_pyramid": lambda: logpolar.build_pyramid(frame, PYRAMID_LEVELS),
+        "sample_logpolar_pyramid": lambda: logpolar.sample_logpolar_pyramid(
+            pyr, lpg, c, PYRAMID_LEVELS),
+    }
+
+
+def math_float(cfg, viewport, frame, lp, restored, c):
+    """The float32 math at ``cfg``'s shapes (gnomonic at ``viewport``):
+    name -> zero-argument call; ``lp`` is a log-polar sample and
+    ``restored`` the frame's SAT-path restore."""
+    w, h = cfg.source_width, cfg.source_height
+    calls = {
+        "logpolar_gaussian_blur": lambda: logpolar.logpolar_gaussian_blur(lp),
+        "unwarp_logpolar": lambda: logpolar.unwarp_logpolar(lp, w, h, c),
+        "gnomonic_project": lambda: gnomonic.gnomonic_project(frame, *viewport, c),
+    }
+    for name in ("mse", "psnr", "ws_psnr", "ssim"):
+        calls[name] = lambda f=getattr(metrics, name): f(frame, restored)
+    for name in ("foveal_psnr", "eccentricity_weighted_psnr", "foveal_ssim",
+                 "eccentricity_weighted_ssim"):
+        calls[name] = lambda f=getattr(metrics, name): f(frame, restored, c)
+    return calls
+
+
+def time_host(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn``, synchronised with the card where there is
+    one, after a warm-up call."""
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_math(device: str = "cuda", cfg=None, viewport=VIEWPORT) -> dict:
+    """The math off the main path on ``device`` against the CPU port
+    (module docstring, phase 7); returns the report it prints."""
+    cfg = cfg or FoveaxConfig()
+    frame_np = synthetic_frames(f"synthetic://{cfg.source_width}x"
+                                f"{cfg.source_height}@30/1", 1)[0]
+    cpu = FoveationPipeline(cfg, sampler="sat", device="cpu")
+    frame = torch.from_numpy(frame_np)
+    c = torch.tensor(MATH_GAZE, dtype=torch.float32)
+    reduced = cpu.foveate(frame, c)
+    restored = cpu.unwarp_auto(reduced, c)
+    lpg = logpolar.make_logpolar_grid(cfg.reduced_width, cfg.reduced_height,
+                                      cfg.source_width, cfg.source_height, device="cpu")
+    lp = logpolar.sample_logpolar(frame, lpg, c)
+    report = {}
+    exact_cpu = math_exact(cfg, "cpu", frame, reduced, c)
+    exact_dev = math_exact(cfg, device, frame.to(device), reduced.to(device),
+                           c.to(device))
+    for name, fn in exact_dev.items():
+        got, want = fn().cpu(), exact_cpu[name]()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"math {name}: the card differs from the CPU port")
+        report[name] = {"equal": True, "ms": round(time_host(fn), 4)}
+    float_cpu = math_float(cfg, viewport, frame, lp, restored, c)
+    float_dev = math_float(cfg, viewport, *(t.to(device) for t in
+                                            (frame, lp, restored, c)))
+    for name, fn in float_dev.items():
+        got, want = fn().cpu(), float_cpu[name]()
+        entry = {"ms": round(time_host(fn), 4)}
+        if got.dtype == torch.uint8:
+            d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+            if name == "gnomonic_project":
+                share, bound = float(d.amax(-1).gt(0).float().mean()), MAX_GNOMONIC_SHARE
+                entry["share_differing"] = share
+            else:
+                share, bound = float(d.gt(1).float().mean()), MAX_SHARE_OVER_1LSB
+                entry["share_over_1lsb"] = share
+            entry["max_abs_diff"] = int(d.max())
+        else:
+            share = abs(float(got) - float(want))
+            bound = MAX_SSIM_DIFF if "ssim" in name else MAX_PSNR_DB_DIFF
+            if name == "mse":
+                bound = 1e-5 * float(want)
+            entry.update(value=float(got), cpu_value=float(want), abs_diff=share)
+        if not share <= bound:
+            raise AssertionError(f"math {name}: {share} against the CPU port, "
+                                 f"bound {bound}")
+        report[name] = entry
+    print(f"math {cfg.source_width}x{cfg.source_height} (gnomonic "
+          f"{viewport[0]}x{viewport[1]}), gaze {MATH_GAZE}, {device} vs CPU port, "
+          f"host ms synchronised (median of 5): {json.dumps(report)}", flush=True)
+    return report
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1057,6 +1381,8 @@ def main() -> int:
         for sampler in PATH_KERNELS:
             phase_path_fps(shape, sampler)
     phase_serve(kernels)
+    phase_svd(kernels)
+    phase_math()
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {

@@ -65,6 +65,17 @@ def _grid_axis(out_dim: int, source_dim: int) -> np.ndarray:
     return np.floor((d0 + d1) / 2.0).astype(np.int16)
 
 
+def _point_grid_axis(out_dim: int, source_dim: int) -> np.ndarray:
+    """1-D raw (non-averaged) grid vector of shape (out_dim,), int16.
+
+    The ImageSampler baseline stores raw deltas without neighbour averaging
+    (reference: src/image_sampler_sample_rect_kernel.cl:48-88).
+    """
+    i = np.arange(out_dim, dtype=np.int64)
+    u = i - out_dim // 2
+    return delta64(u, out_dim, source_dim).astype(np.int16)
+
+
 def scaled_center(center: torch.Tensor, width: int, height: int):
     """``trunc(float32(c) * float32(dim))`` per axis, as int32 tensors
     on the centre's device: the product of a float32 tensor and an
@@ -80,6 +91,8 @@ class LogRectGrid:
 
     ``gx``: (out_width + 1,) int16 — averaged x-deltas.
     ``gy``: (out_height + 1,) int16 — averaged y-deltas.
+    (A point grid, :func:`make_point_grid`, holds raw deltas of shapes
+    (out_width,) and (out_height,).)
     ``max_dy``: the largest row step of ``gy``, kept on the host so that
     the sampler can check its 16-bit row-sum bound without a device read.
     """
@@ -150,6 +163,40 @@ def make_grid(
 ) -> LogRectGrid:
     """Build (and cache per device) the averaged log-rectilinear grid."""
     return _make_grid_cached(
+        out_width, out_height, source_width, source_height,
+        resolve_device(device),
+    )
+
+
+@functools.lru_cache(maxsize=32)
+def _make_point_grid_cached(
+    out_width: int, out_height: int, source_width: int, source_height: int,
+    device: torch.device,
+) -> LogRectGrid:
+    gx = _point_grid_axis(out_width, source_width)
+    gy = _point_grid_axis(out_height, source_height)
+    return LogRectGrid(
+        gx=torch.from_numpy(gx).to(device),
+        gy=torch.from_numpy(gy).to(device),
+        out_width=out_width,
+        out_height=out_height,
+        source_width=source_width,
+        source_height=source_height,
+        max_dy=int(np.diff(gy.astype(np.int64)).max(initial=0)),
+    )
+
+
+def make_point_grid(
+    out_width: int,
+    out_height: int,
+    source_width: int,
+    source_height: int,
+    device: str | torch.device | None = None,
+) -> LogRectGrid:
+    """Raw-delta grid of the point-sampling baseline
+    (:func:`~foveax_torch.core.sample.sample_rect_point`), cached per
+    device: ``gx`` (out_width,) int16, ``gy`` (out_height,) int16."""
+    return _make_point_grid_cached(
         out_width, out_height, source_width, source_height,
         resolve_device(device),
     )

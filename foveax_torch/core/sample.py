@@ -13,13 +13,21 @@ package's shared-tap gathers (``q``/``fix`` of its ``_axis_taps``, the
 ``top_k`` fixup and the uint16 row bands) halve the traffic through the
 TPU's slow gather engine; the port reaches the same integers with plain
 indexed gathers, so those outputs are not carried over.
+
+The CLI-only samplers follow: :func:`sample_rect_360_from_sat` (the
+reference's second SAT kernel, with its own 360 indexing),
+:func:`expand_sampled_rect` (where the samples land) and
+:func:`sample_rect_point` (the aliasing point-sample baseline).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from foveax_torch.core.logrect import LogRectGrid, scaled_center
+from foveax_torch.core.logrect import LogRectGrid, delta64, scaled_center
 from foveax_torch.kernels.scan2d import MASK32
 
 
@@ -112,3 +120,145 @@ def sample_rect_from_sat(
     order = (1, 0, 2, 3) if out_layout == "chw" else (1, 2, 3, 0)
     out = out.permute(order).contiguous()
     return out if center.dim() == 2 else out[0]
+
+
+@functools.lru_cache(maxsize=8)
+def _flat_pair_maps(wo: int, ho: int, device: torch.device):
+    """The 360 kernel's flat short2 pair indices, which depend only on the
+    shape: (x, y) grid-vector indices of the hi and lo pair of every
+    output texel, (Ho, Wo) int64 each, and the ``defined`` mask."""
+    gw, gh = wo + 1, ho + 1
+    jj, ii = np.mgrid[0:ho, 0:wo]
+    flat_hi = (jj + 2) * gw + (ii + 2)
+    flat_lo = (jj + 2) * gw + (ii - 1)
+    defined = flat_hi < gh * gw
+    fh = np.clip(flat_hi, 0, gh * gw - 1)
+    fl = np.clip(flat_lo, 0, gh * gw - 1)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (fh % gw, fh // gw, fl % gw, fl // gw, defined)
+    )
+
+
+def sample_rect_360_from_sat(
+    sat: torch.Tensor,
+    grid: LogRectGrid,
+    center: torch.Tensor,
+    *,
+    out_layout: str = "hwc",
+) -> torch.Tensor:
+    """The reference's second sampling kernel, ``sample_rect_360_kernel``
+    (reference: src/sat_decoder_sample_rect_kernel.cl:298-382), with its
+    own grid indexing.
+
+    Deltas are read as flat short2 pairs at ``(j+2)*gw + (i+2)`` and
+    ``(j+2)*gw + (i-1)``, so (a) the x-box spans 3 grid cells, (b) both
+    edges take their y-delta from grid row j+2 (one source row tall after
+    the clamp), and (c) at the first and last output column the flat index
+    rolls into the adjacent grid row.  The reference reads past the grid
+    buffer where ``(j+2)*gw + (i+2) >= gh*gw``; those texels are 0 here, as
+    in the JAX package (the image is defined only where the golden's
+    ``defined`` mask holds).  Not a hot path: dense 2-D index maps, the
+    4-tap difference in int64 mod 2^32 and the exact box division.
+    """
+    _, hs, ws = sat.shape
+    cx, cy = scaled_center(center, ws, hs)
+    # The grid vectors and the gaze stay device tensors.
+    hi_x, hi_y, lo_x, lo_y, defined = _flat_pair_maps(
+        grid.out_width, grid.out_height, sat.device
+    )
+    gx = grid.gx.to(torch.int32)
+    gy = grid.gy.to(torch.int32)
+    px = cx + gx[hi_x]
+    py = cy + gy[hi_y]
+    pxm = cx + gx[lo_x]
+    pym = cy + gy[lo_y]
+
+    # Shared tail of both kernels: wrap, validity, clamp, 4-tap box.
+    wrap_hi = (px >= ws) & (pxm >= ws)
+    wrap_lo = (px < 0) & (pxm < 0)
+    shift = torch.where(wrap_hi, -ws, torch.where(wrap_lo, ws, 0))
+    px = px + shift
+    pxm = pxm + shift
+
+    valid = (((px >= 0) & (px < ws)) | ((pxm >= 0) & (pxm < ws))) & (
+        ((py >= 0) & (py < hs)) | ((pym >= 0) & (pym < hs))
+    )
+    pxc = px.clamp(1, ws - 1).long()
+    pyc = py.clamp(1, hs - 1).long()
+    pxmc = torch.minimum(pxm.clamp_min(0).long(), pxc - 1)
+    pymc = torch.minimum(pym.clamp_min(0).long(), pyc - 1)
+
+    s = sat.view(torch.int32)
+
+    def at(y, x):  # (3, Ho, Wo), the uint32 values mod 2^32
+        return s[:, y, x].to(torch.int64) & MASK32
+
+    box = (at(pyc, pxc) - at(pymc, pxc) + at(pymc, pxmc) - at(pyc, pxmc)) & MASK32
+    rect = (pyc - pymc) * (pxc - pxmc)
+    vals = _exact_box_div(box, rect[None])
+    keep = (valid & defined)[None]
+    out = torch.where(keep, vals, 0).to(torch.uint8)
+    return out if out_layout == "chw" else out.permute(1, 2, 0).contiguous()
+
+
+def expand_sampled_rect(
+    reduced: torch.Tensor,
+    out_width: int,
+    out_height: int,
+    center: torch.Tensor,
+) -> torch.Tensor:
+    """Forward-scatter expansion: place each reduced texel at its full-res
+    anchor position, leaving gaps black — the reference's debugging
+    visualization of where samples land (reference:
+    src/sat_decoder.cc:555-616 ExpandSampledFrameRectCPU).
+
+    (Hr, Wr, 3) uint8 -> (out_height, out_width, 3) uint8.  The raw deltas
+    are strictly increasing per axis (the delta curve is convex through 0,
+    so once it leaves |u| its step exceeds 1), so no two texels land on
+    one pixel and the scatter has one writer per pixel on any device.
+    """
+    hr, wr, _ = reduced.shape
+    # Raw (non-averaged) deltas with lambda from the OUTPUT dims, exactly
+    # as the reference helper computes them.
+    dx = delta64(np.arange(wr) - wr // 2, wr, out_width)
+    dy = delta64(np.arange(hr) - hr // 2, hr, out_height)
+    dev = reduced.device
+    cx, cy = scaled_center(center, out_width, out_height)
+    x = cx + torch.from_numpy(dx.astype(np.int32)).to(dev)  # (Wr,)
+    y = cy + torch.from_numpy(dy.astype(np.int32)).to(dev)  # (Hr,)
+    valid = ((x >= 0) & (x < out_width))[None, :] & (
+        (y >= 0) & (y < out_height)
+    )[:, None]
+    flat = (y[:, None] * out_width + x[None, :]).long()
+
+    out = torch.zeros((out_height * out_width, 3), dtype=torch.uint8, device=dev)
+    out[flat[valid]] = reduced[valid]
+    return out.reshape(out_height, out_width, 3)
+
+
+def sample_rect_point(
+    frame: torch.Tensor,
+    grid: LogRectGrid,
+    center: torch.Tensor,
+) -> torch.Tensor:
+    """Aliasing baseline: point-sample the RGB frame directly through the
+    raw-delta grid — no SAT, no averaging (reference:
+    src/image_sampler_sample_rect_kernel.cl:1-46, host
+    src/image_sampler.cc:249-299).  Takes a (H, W, 3) uint8 frame and a
+    :func:`~foveax_torch.core.logrect.make_point_grid` grid; returns
+    (Ho, Wo, 3) uint8.
+    """
+    hs, ws, _ = frame.shape
+    cx, cy = scaled_center(center, ws, hs)
+    x = cx + grid.gx.to(torch.int32)  # (Wo,)
+    y = cy + grid.gy.to(torch.int32)  # (Ho,)
+
+    # Single-sided x wrap (reference kernel :29-33), y bounds check.
+    x = torch.where(x >= ws, x - ws, torch.where(x < 0, x + ws, x))
+    valid = ((x >= 0) & (x < ws))[None, :] & ((y >= 0) & (y < hs))[:, None]
+    xc = x.clamp(0, ws - 1)
+    yc = y.clamp(0, hs - 1)
+
+    vals = frame.index_select(0, yc).index_select(1, xc)
+    return torch.where(valid[..., None], vals, 0).to(torch.uint8)

@@ -28,9 +28,15 @@ over incoming messages (a ``websockets`` connection, or an in-memory
 pair); ``websockets`` is imported only to serve on a port and to name its
 connection-closed exception.
 
-Not ported: the SVD serve mode (``sat_compression="svd"``, ROADMAP M8) and
-multi-device serving (``mesh=``, ``place_videos="round_robin"`` on more
-than one device, ROADMAP M10) raise ``NotImplementedError``.
+SVD mode (``sat_compression="svd"``): the device step is the SAT build
+alone (K5 on the card), once per source frame; the SAT is read back,
+factored on the host (``core/svd_sat.compress_sat``, NumPy float64) and
+packed for the wire (``io/svdwire``) inside the executor call that
+``ReadbackGuard`` bounds, and one gaze-independent ``fxsv`` blob per tick
+goes to every member: each client foveates at its own gaze.
+
+Not ported: multi-device serving (``mesh=``, ``place_videos="round_robin"``
+on more than one device, ROADMAP M10) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ import numpy as np
 import torch
 
 from foveax_torch.config import FoveaxConfig
+from foveax_torch.core.svd_sat import compress_sat
 from foveax_torch.device import resolve_device
+from foveax_torch.io import svdwire
 from foveax_torch.io.mux import FragmentWriter
 from foveax_torch.io.video import open_video, parse_synthetic_spec
 from foveax_torch.io.wirecodec import (
@@ -365,6 +373,8 @@ class BroadcastChannel:
         # Members that already received streamInfo + the stream header
         # (channel-owned so leave() can force a re-send on rejoin).
         self._sent_header: set[Session] = set()
+        # SVD-mode wire packer (lazy; sync cadence = gop_size ticks).
+        self._svd_packer = None
         # Encode-saturation degradation state: EMA of one wire encode's
         # wall time and the current cadence decimation factor (1 = serve
         # every member every tick).
@@ -421,26 +431,29 @@ class BroadcastChannel:
             raise
 
     def _join_inner(self, session: Session, cfg) -> None:
-        if session.wire is not None:
-            # Rejoin after an error eviction: release the old encoder
-            # and resend header state (fresh FragmentWriter, seq 0).
-            session.wire.close()
-        self._sent_header.discard(session)
-        # Honor the session's adapted AIMD rate on rejoin (rate_bps
-        # equals the configured target for fresh sessions): a member
-        # that was struggling before its eviction must not silently
-        # come back at full rate while its controller state still
-        # reads the decreased value.
-        session.wire = self.server._make_encoder(
-            cfg, bitrate=session.rate_bps or None
-        )
-        self.members[session] = FragmentWriter(
-            cfg.reduced_width,
-            cfg.reduced_height,
-            self.server.config.fps,
-            session.wire.sample_format,
-            codec_config=session.wire.codec_config,
-        )
+        if self.server.sat_compression == "svd":
+            self.members[session] = self.server._svd_muxer(cfg)
+        else:
+            if session.wire is not None:
+                # Rejoin after an error eviction: release the old encoder
+                # and resend header state (fresh FragmentWriter, seq 0).
+                session.wire.close()
+            self._sent_header.discard(session)
+            # Honor the session's adapted AIMD rate on rejoin (rate_bps
+            # equals the configured target for fresh sessions): a member
+            # that was struggling before its eviction must not silently
+            # come back at full rate while its controller state still
+            # reads the decreased value.
+            session.wire = self.server._make_encoder(
+                cfg, bitrate=session.rate_bps or None
+            )
+            self.members[session] = FragmentWriter(
+                cfg.reduced_width,
+                cfg.reduced_height,
+                self.server.config.fps,
+                session.wire.sample_format,
+                codec_config=session.wire.codec_config,
+            )
         if self.task is None:
             self.task = asyncio.create_task(self._loop())
             self.task.add_done_callback(_log_task_failure)
@@ -566,8 +579,12 @@ class BroadcastChannel:
         p = self.pipeline
         _stage = _input_stager(p.device)
         # `prepared` is the per-tick device state: the SAT for the "sat"
-        # batch sampler, the staged frame itself for "fused".
-        build, batch_sample = p.batch_pair(self.server.batch_sampler)
+        # batch sampler and for SVD mode, the staged frame itself for
+        # "fused".
+        if self.server.sat_compression == "svd":
+            build, batch_sample = p.build_sat, None
+        else:
+            build, batch_sample = p.batch_pair(self.server.batch_sampler)
         tick = 1.0 / self.server.config.fps
         sent_header = self._sent_header
         frame_num = 0
@@ -594,6 +611,58 @@ class BroadcastChannel:
 
             members = list(self.members.items())
             if not members:
+                frame_num += 1
+                continue
+
+            if self.server.sat_compression == "svd":
+                # One gaze-independent blob per tick serves every member —
+                # the SVD mode's whole point: no per-gaze sampling, no
+                # per-member encode.
+                if self._svd_packer is None:
+                    self._svd_packer = self.server._make_svd_packer()
+                packer = self._svd_packer
+                packed = await self._readback(
+                    loop, lambda: self.server._pack_svd(packer, prepared)
+                )
+                if packed is None:  # deadline missed: skip, stay alive
+                    # (the packer's seq advanced, so receivers go dark
+                    # until the next sync sample — by design)
+                    frame_num += 1
+                    continue
+                blob, is_key = packed
+                for session, mux in members:
+                    try:
+                        if session not in sent_header:
+                            await session.ws.send(
+                                self.server._stream_info(
+                                    p.config, mux.sample_format
+                                )
+                            )
+                            await session.ws.send(mux.header())
+                            sent_header.add(session)
+                        if (
+                            self.server._backlog(session.ws)
+                            > self.server.max_send_backlog
+                        ):
+                            session.frames_dropped += 1
+                            self.server.total_dropped += 1
+                            continue
+                        cx, cy = session.effective_center()
+                        session.mark_gaze_applied()
+                        await session.ws.send(
+                            protocol.dumps(
+                                FrameMeta(
+                                    centerX=cx,
+                                    centerY=cy,
+                                    frameNum=frame_num % 256,
+                                )
+                            )
+                        )
+                        await session.ws.send(mux.frame(blob, is_sync=is_key))
+                        session.frames_sent += 1
+                        self.server.total_sent += 1
+                    except Exception:
+                        self.leave(session)
                 frame_num += 1
                 continue
 
@@ -780,6 +849,7 @@ class FoveaxServer:
         wire_crf: int = 25,
         wire_preset: str = "auto",
         sat_compression: str = "none",
+        svd_wire_compress: str = "rle",
         mesh: "object | None" = None,
         encode_workers: int | None = None,
         adapt_rate: bool = False,
@@ -847,14 +917,22 @@ class FoveaxServer:
                 "--adapt-rate needs an inter-frame wire codec (JPEG "
                 "already adapts via per-frame quality)"
             )
-        # "svd" (stream rank-r SAT factors instead of foveated frames) is
-        # the JAX package's SVD serve mode, which the port has not yet.
+        # "svd": stream rank-r SAT factors + residual instead of foveated
+        # frames — foveation moves client-side (zero gaze latency, one
+        # stream serves any number of gazes).  Goes beyond the reference,
+        # which built the kernels but never wired them into a program
+        # (src/sat_decoder.cc:774-885).
         if sat_compression not in ("none", "svd"):
             raise ValueError(f"unknown sat_compression {sat_compression!r}")
-        if sat_compression == "svd":
-            raise NotImplementedError(
-                "sat_compression='svd' is not ported yet (ROADMAP M8)"
+        self.sat_compression = sat_compression
+        # Residual entropy-coding strategy for the SVD wire (v2):
+        # rle = zlib Z_RLE, deflate = zlib level-1, none = raw (every
+        # sample self-contained).
+        if svd_wire_compress not in ("rle", "deflate", "none"):
+            raise ValueError(
+                f"unknown svd_wire_compress {svd_wire_compress!r}"
             )
+        self.svd_wire_compress = svd_wire_compress
         # Broadcast-tick sampling strategy: "sat" amortizes one SAT build
         # (kernel K5) per tick across the member batch, then samples each
         # gaze with the 4-tap sampler; "fused" skips the SAT and samples
@@ -867,6 +945,11 @@ class FoveaxServer:
             raise ValueError(
                 f"unknown batch_sampler {batch_sampler!r} (the port "
                 "serves 'auto', 'sat' and 'fused')"
+            )
+        if batch_sampler not in ("auto", "sat") and sat_compression == "svd":
+            raise ValueError(
+                "sat_compression='svd' streams the SAT itself; "
+                "batch_sampler must stay 'sat' or 'auto'"
             )
         self.batch_sampler = batch_sampler
         # Multi-device serving waits for the port of the JAX package's
@@ -964,6 +1047,29 @@ class FoveaxServer:
                 self._pipelines.popitem(last=False)
         self._pipelines.move_to_end(key)
         return self._pipelines[key]
+
+    # -- SVD mode ------------------------------------------------------------
+
+    def _svd_muxer(self, cfg: FoveaxConfig) -> FragmentWriter:
+        """The ``fxsv`` track: the payload is a full-frame object
+        (gaze-independent), so the track advertises the SOURCE
+        dimensions."""
+        return FragmentWriter(
+            cfg.source_width, cfg.source_height, self.config.fps,
+            svdwire.SAMPLE_FORMAT,
+        )
+
+    def _make_svd_packer(self) -> svdwire.SvdWirePacker:
+        return svdwire.SvdWirePacker(
+            sync_every=self.config.gop_size, compress=self.svd_wire_compress
+        )
+
+    def _pack_svd(self, packer: svdwire.SvdWirePacker, sat: torch.Tensor):
+        """Read the SAT back, factor it on the host and pack it:
+        ``(blob, is_sync)``.  Runs inside the guarded executor call."""
+        return packer.pack(
+            compress_sat(sat, self.config.svd_rank, device="cpu")
+        )
 
     def _resolve_preset_base(self, cfg: FoveaxConfig) -> str:
         """Resolve --wire-preset auto once per operating point (codec x
@@ -1152,14 +1258,17 @@ class FoveaxServer:
         try:
             pipeline = self._pipeline_for(reader.width, reader.height)
             cfg = pipeline.config
-            wire = self._make_encoder(cfg)
-            mux = FragmentWriter(
-                cfg.reduced_width,
-                cfg.reduced_height,
-                self.config.fps,
-                wire.sample_format,
-                codec_config=wire.codec_config,
-            )
+            if self.sat_compression == "svd":
+                mux, wire = self._svd_muxer(cfg), None
+            else:
+                wire = self._make_encoder(cfg)
+                mux = FragmentWriter(
+                    cfg.reduced_width,
+                    cfg.reduced_height,
+                    self.config.fps,
+                    wire.sample_format,
+                    codec_config=wire.codec_config,
+                )
         except Exception:
             reader.close()
             raise
@@ -1213,11 +1322,16 @@ class FoveaxServer:
 
         frame_num = 0
         next_deadline = time.perf_counter()
-        # single_pair resolves to the pipeline's sampler: the SAT pair
-        # (prepare = the SAT build, gaze-late 4-tap sample) off the fused
-        # sampler's contract, else the fused sampler (prepare = staging,
-        # all device work gaze-late).
-        prepare, sample_one = pipeline.single_pair()
+        # SVD mode streams the SAT itself, so prepare must stay the SAT
+        # build; otherwise single_pair resolves to the pipeline's sampler:
+        # the SAT pair (prepare = the SAT build, gaze-late 4-tap sample)
+        # off the fused sampler's contract, else the fused sampler
+        # (prepare = staging, all device work gaze-late).
+        if self.sat_compression == "svd":
+            prepare, sample_one = pipeline.build_sat, None
+            packer = self._make_svd_packer()
+        else:
+            prepare, sample_one = pipeline.single_pair()
         rb_guard = (
             ReadbackGuard(self.readback_deadline_s)
             if self.readback_deadline_s > 0
@@ -1269,65 +1383,74 @@ class FoveaxServer:
                 session.frames_dropped += 1
                 self.total_dropped += 1
             else:
-                stale_preset = session.wire is not None and (
-                    getattr(
-                        session.wire,
-                        "_foveax_preset_gen",
-                        self._preset_gen,
+                if self.sat_compression == "svd":
+                    packed = await _readback(
+                        lambda: self._pack_svd(packer, prepared)
                     )
-                    != self._preset_gen
-                )
-                if (
-                    session._rate_dirty or stale_preset
-                ) and session.wire is not None:
-                    # Rate adaptation (or a preset-pressure change):
-                    # new encoder + muxer, then the
-                    # new init segment goes out before the sample.
-                    # An encoder-open failure must not die silently
-                    # in the task (the socket is healthy, so the
-                    # client would hang forever): tell it and close.
-                    try:
-                        mux = session.mux = session.renegotiate_wire(
-                            pipeline.config
+                    if packed is None:  # readback deadline missed: skip
+                        frame_num += 1
+                        continue
+                    sample, is_key = packed
+                else:
+                    stale_preset = session.wire is not None and (
+                        getattr(
+                            session.wire,
+                            "_foveax_preset_gen",
+                            self._preset_gen,
                         )
-                    except Exception as e:
-                        log.warning(
-                            "renegotiation failed, closing session: %s",
-                            e,
-                        )
-                        await _notify_stream_error(
-                            ws,
-                            "stream ended: encoder renegotiation "
-                            f"failed: {e}",
-                        )
-                        return
-                    await ws.send(
-                        self._stream_info(
-                            pipeline.config, mux.sample_format
-                        )
+                        != self._preset_gen
                     )
-                    await ws.send(mux.header())
-                wire = session.wire
-                if hasattr(wire, "quality"):
-                    wire.quality = session.quality
+                    if (
+                        session._rate_dirty or stale_preset
+                    ) and session.wire is not None:
+                        # Rate adaptation (or a preset-pressure change):
+                        # new encoder + muxer, then the
+                        # new init segment goes out before the sample.
+                        # An encoder-open failure must not die silently
+                        # in the task (the socket is healthy, so the
+                        # client would hang forever): tell it and close.
+                        try:
+                            mux = session.mux = session.renegotiate_wire(
+                                pipeline.config
+                            )
+                        except Exception as e:
+                            log.warning(
+                                "renegotiation failed, closing session: %s",
+                                e,
+                            )
+                            await _notify_stream_error(
+                                ws,
+                                "stream ended: encoder renegotiation "
+                                f"failed: {e}",
+                            )
+                            return
+                        await ws.send(
+                            self._stream_info(
+                                pipeline.config, mux.sample_format
+                            )
+                        )
+                        await ws.send(mux.header())
+                    wire = session.wire
+                    if hasattr(wire, "quality"):
+                        wire.quality = session.quality
 
-                # The sample readback is guarded SEPARATELY from the
-                # encode: only the device->host transfer can wedge,
-                # and an abandoned tick must never have advanced the
-                # wire encoder's inter-frame state past bytes the
-                # client actually received (same rule as the
-                # backlog drop above).
-                reduced_np = await _readback(
-                    lambda: sample_one(prepared, pipeline.center(cx, cy))
-                    .cpu()
-                    .numpy()
-                )
-                if reduced_np is None:  # readback deadline missed
-                    frame_num += 1
-                    continue
-                sample, is_key = await loop.run_in_executor(
-                    None, wire.encode, reduced_np
-                )
+                    # The sample readback is guarded SEPARATELY from the
+                    # encode: only the device->host transfer can wedge,
+                    # and an abandoned tick must never have advanced the
+                    # wire encoder's inter-frame state past bytes the
+                    # client actually received (same rule as the
+                    # backlog drop above).
+                    reduced_np = await _readback(
+                        lambda: sample_one(prepared, pipeline.center(cx, cy))
+                        .cpu()
+                        .numpy()
+                    )
+                    if reduced_np is None:  # readback deadline missed
+                        frame_num += 1
+                        continue
+                    sample, is_key = await loop.run_in_executor(
+                        None, wire.encode, reduced_np
+                    )
                 meta = FrameMeta(
                     centerX=cx, centerY=cy, frameNum=frame_num % 256
                 )

@@ -419,3 +419,29 @@ def test_serve_loopback_on_card(pipe, batch_sampler):
                                                           kernels)
     chip_smoke.expect_counts("serve", launches,
                              chip_smoke.serve_expected(batch_sampler, clients))
+
+
+@pytest.mark.parametrize("mode", ["session", "broadcast"])
+def test_svd_serve_loopback_on_card(pipe, mode):
+    """The SVD serve mode on the card at 1920x512 -> 1072x288 through
+    chip_smoke.py's in-memory pair: SATs, blobs, reduced and restored
+    frames equal to the CPU port (tolerance 0); K5 once per source frame,
+    ``unwarp_xy`` once per frame restored."""
+    kernels = chip_smoke.kernel_table()
+    if mode == "session":
+        _, client, launches = chip_smoke.serve_svd_session(CFG, "cuda", kernels)
+        clients, builds = [client], chip_smoke.SVD_FRAMES
+    else:
+        _, clients, launches = chip_smoke.serve_svd_broadcast(CFG, "cuda", kernels)
+        builds = chip_smoke.SVD_TICKS
+    chip_smoke.expect_counts("svd", launches, chip_smoke.svd_expected(clients, builds))
+
+
+def test_math_on_card(pipe):
+    """chip_smoke.py's phase 7 at 1920x512 -> 1072x288 (gnomonic
+    640x360): the integer math bit-equal to the CPU port, the float math
+    inside its stated bounds."""
+    report = chip_smoke.phase_math("cuda", CFG, (640, 360))
+    assert all(report[name]["equal"] for name in (
+        "sample_rect_point", "sample_rect_360_from_sat", "expand_sampled_rect",
+        "sample_logpolar", "build_pyramid", "sample_logpolar_pyramid"))

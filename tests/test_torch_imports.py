@@ -46,6 +46,9 @@ def test_port_and_smoke_import_neither_jax_nor_foveax():
         "foveax_torch.config", "foveax_torch.convert",
         "foveax_torch.core.logrect", "foveax_torch.core.sample",
         "foveax_torch.core.sat", "foveax_torch.core.unwarp",
+        "foveax_torch.core.svd_sat", "foveax_torch.core.logpolar",
+        "foveax_torch.core.gnomonic", "foveax_torch.core.metrics",
+        "foveax_torch.io.svdwire",
         "foveax_torch.kernels.build", "foveax_torch.kernels.fused_select",
         "foveax_torch.kernels.scan2d", "foveax_torch.kernels.segreduce",
         "foveax_torch.kernels.unwarp", "foveax_torch.pipeline.frames",
@@ -130,3 +133,21 @@ def test_smoke_fails_alone(tmp_path):
     assert out.returncode != 0
     assert out.stdout == ""
     assert "foveax_torch" in out.stderr
+
+
+def test_core_exports_mirror_foveax():
+    """``foveax_torch.core`` exports what ``foveax.core`` exports, apart
+    from ``sample_rect_direct`` (a TPU workaround, not ported) and
+    ``delta_1d`` (a traced float32 delta; the port's deltas are the host's
+    float64 ``delta64``).  foveax's list is read from its source, so JAX is
+    not imported."""
+    import foveax_torch.core as core
+
+    tree = ast.parse((ROOT / "foveax" / "core" / "__init__.py").read_text())
+    (fx_all,) = [
+        ast.literal_eval(node.value) for node in tree.body
+        if isinstance(node, ast.Assign) and node.targets[0].id == "__all__"
+    ]
+    assert set(fx_all) - {"sample_rect_direct", "delta_1d"} <= set(core.__all__)
+    assert set(core.__all__) - set(fx_all) == {"delta64"}
+    assert all(hasattr(core, name) for name in core.__all__)

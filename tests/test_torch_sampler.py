@@ -3,7 +3,10 @@ the plain version of ``segment_reduce_xy_batch``: K1's and K2's plain
 passes composed) bit-identical to
 ``sample_rect_fused`` in interpret mode, to the SAT path and to the
 float64 golden; the SAT sampler ``sample_rect_from_sat`` bit-identical to
-foveax's, with both tap schemes, both wrap modes and a gaze batch.
+foveax's, with both tap schemes, both wrap modes and a gaze batch; and
+the CLI-only samplers (``sample_rect_360_from_sat``,
+``expand_sampled_rect``, ``sample_rect_point`` with its point grid)
+bit-identical to foveax's and to the golden.
 
 The JAX references are jitted with the gaze traced, so each shape and
 wrap mode compiles once per module."""
@@ -16,13 +19,21 @@ import torch
 
 from foveax.core import golden
 from foveax.core.logrect import make_grid as fx_make_grid
+from foveax.core.logrect import make_point_grid as fx_make_point_grid
+from foveax.core.sample import expand_sampled_rect as fx_expand
+from foveax.core.sample import sample_rect_360_from_sat as fx_sample_360
+from foveax.core.sample import sample_rect_point as fx_point
 from foveax.core.sample import _axis_taps as fx_axis_taps
 from foveax.core.sample import sample_rect_from_sat
 from foveax.core.sat import build_sat
 from foveax.kernels.segreduce import sample_rect_fused as fx_fused
 from foveax.kernels.segreduce import sample_rect_fused_batch as fx_fused_batch
 from foveax_torch.convert import grid_from_numpy
+from foveax_torch.core.logrect import make_point_grid as t_make_point_grid
 from foveax_torch.core.sample import _axis_taps
+from foveax_torch.core.sample import expand_sampled_rect as t_expand
+from foveax_torch.core.sample import sample_rect_360_from_sat as t_sample_360
+from foveax_torch.core.sample import sample_rect_point as t_point
 from foveax_torch.core.sample import sample_rect_from_sat as t_sample_sat
 from foveax_torch.core.sat import build_sat as t_build_sat
 from foveax_torch.kernels import segreduce
@@ -354,3 +365,74 @@ def test_ineligible_grid_raises():
     frame = torch.zeros((3, 1024, 16), dtype=torch.uint8)
     with pytest.raises(ValueError, match="uint16"):
         sample_rect_fused(frame, tgrid, torch.tensor((0.5, 0.5)))
+
+
+# -- the CLI-only samplers -------------------------------------------------
+
+CLI_SHAPES = [(96, 64, 48, 32), (256, 128, 144, 80)]
+
+
+@pytest.fixture(scope="module", params=CLI_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def cli(request):
+    w, h, wr, hr = request.param
+    frame = np.random.default_rng(w + h).integers(0, 256, (h, w, 3), np.uint8)
+    grid, tgrid = _grids(wr, hr, w, h)
+    return dict(w=w, h=h, wr=wr, hr=hr, frame=frame, grid=grid, tgrid=tgrid,
+                sat=build_sat(jnp.asarray(frame)),
+                tsat=t_build_sat(torch.from_numpy(frame)))
+
+
+@pytest.mark.parametrize("center", CENTERS)
+def test_sample_rect_360_bit_equal_to_foveax(cli, center):
+    """Bit-equal to foveax everywhere (both zero the texels the reference
+    reads past its grid buffer) and to the golden on its ``defined``
+    mask, in both layouts."""
+    c = jnp.asarray(center, jnp.float32)
+    fn = jax.jit(lambda s, c: fx_sample_360(s, cli["grid"], c))
+    want = np.asarray(fn(cli["sat"], c))
+    tc = torch.tensor(center, dtype=torch.float32)
+    got = t_sample_360(cli["tsat"], cli["tgrid"], tc).numpy()
+    np.testing.assert_array_equal(got, want)
+    gold, defined = golden.sample_rect_360(
+        np.asarray(cli["sat"]), golden.grid_dense(cli["wr"], cli["hr"], cli["w"],
+                                                  cli["h"]), center)
+    np.testing.assert_array_equal(got[defined], gold[defined])
+    chw = t_sample_360(cli["tsat"], cli["tgrid"], tc, out_layout="chw").numpy()
+    np.testing.assert_array_equal(chw, got.transpose(2, 0, 1))
+
+
+@pytest.mark.parametrize("center", CENTERS)
+def test_expand_sampled_rect_bit_equal_to_foveax(cli, center):
+    w, h = cli["w"], cli["h"]
+    c = jnp.asarray(center, jnp.float32)
+    reduced = np.array(sample_rect_from_sat(cli["sat"], cli["grid"], c))
+    fn = jax.jit(lambda r, c: fx_expand(r, w, h, c))
+    want = np.asarray(fn(jnp.asarray(reduced), c))
+    got = t_expand(torch.from_numpy(reduced), w, h,
+                   torch.tensor(center, dtype=torch.float32)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, golden.expand_sampled_rect(reduced, w, h,
+                                                                  center))
+
+
+def test_point_grid_bit_equal_to_foveax(cli):
+    args = (cli["wr"], cli["hr"], cli["w"], cli["h"])
+    fg, tg = fx_make_point_grid(*args), t_make_point_grid(*args, "cpu")
+    np.testing.assert_array_equal(tg.gx.numpy(), np.asarray(fg.gx))
+    np.testing.assert_array_equal(tg.gy.numpy(), np.asarray(fg.gy))
+    assert tg.gx.shape == (cli["wr"],) and tg.gy.shape == (cli["hr"],)
+
+
+@pytest.mark.parametrize("center", CENTERS)
+def test_sample_rect_point_bit_equal_to_foveax(cli, center):
+    args = (cli["wr"], cli["hr"], cli["w"], cli["h"])
+    fg, tg = fx_make_point_grid(*args), t_make_point_grid(*args, "cpu")
+    c = jnp.asarray(center, jnp.float32)
+    want = np.asarray(jax.jit(lambda f, c: fx_point(f, fg, c))(
+        jnp.asarray(cli["frame"]), c))
+    got = t_point(torch.from_numpy(cli["frame"]), tg,
+                  torch.tensor(center, dtype=torch.float32)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if center[0] < 1.0 and center[1] < 1.0:  # the golden scales in float64
+        np.testing.assert_array_equal(
+            got, golden.sample_rect_point(cli["frame"], cli["wr"], cli["hr"], center))

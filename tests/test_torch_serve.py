@@ -2,9 +2,9 @@
 the functional behaviour of the JAX package's serve tests (text replies,
 broadcast, malformed input, the gaze trust boundary, path traversal, the
 channel lifecycle, resolution checks, the pipeline cache, decimation,
-AIMD, the readback guard), the in-memory connection pair that
-chip_smoke.py serves through, the device default, and what is not ported
-yet.  No test here asserts a time."""
+AIMD, the readback guard), the SVD serve mode, the in-memory connection
+pair that chip_smoke.py serves through, the device default, and what is
+not ported yet.  No test here asserts a time."""
 
 import asyncio
 import socket
@@ -430,8 +430,9 @@ def test_device_default_needs_a_gpu():
 
 
 def test_unported_modes_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="M8"):
-        _server(sat_compression="svd")
+    # The SVD mode streams the SAT itself: only the SAT batch samplers.
+    with pytest.raises(ValueError, match="batch_sampler"):
+        _server(sat_compression="svd", batch_sampler="fused")
     with pytest.raises(NotImplementedError, match="M10"):
         _server(broadcast=True, mesh=object())
     with pytest.raises(ValueError, match="batch_sampler"):
@@ -624,3 +625,66 @@ def test_launch_count_is_exact_under_threads(monkeypatch):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert kernel.launches == n_threads * per_thread
+
+
+@pytest.mark.parametrize("mode", ["session", "broadcast"])
+def test_svd_memory_pair_loopback(mode):
+    """chip_smoke.py's SVD phase at a CPU size: every packed SAT, blob,
+    reduced and restored frame equal to the CPU port's, the session's
+    first sample a sync sample and the rest deltas, and no kernel launched
+    on CPU tensors."""
+    kernels = chip_smoke.kernel_table()
+    if mode == "session":
+        server, client, launches = chip_smoke.serve_svd_session(CFG, "cpu", kernels)
+        clients = [client]
+    else:
+        server, clients, launches = chip_smoke.serve_svd_broadcast(CFG, "cpu", kernels)
+        assert len(server.svd_packed) == chip_smoke.SVD_TICKS
+    assert set(launches.values()) == {0}
+    assert all(c.stats.frames > 0 for c in clients)
+    assert server.svd_packed[0][2] is True
+
+
+def test_svd_options_validated():
+    with pytest.raises(ValueError, match="svd_wire_compress"):
+        _server(sat_compression="svd", svd_wire_compress="lz4")
+    with pytest.raises(ValueError, match="sat_compression"):
+        _server(sat_compression="pca")
+    server = _server(sat_compression="svd", batch_sampler="sat",
+                     svd_wire_compress="none")
+    assert server.sat_compression == "svd" and server.svd_wire_compress == "none"
+
+
+@pytest.mark.parametrize("compress", ["deflate", "none"])
+def test_svd_stream_restores_frames(compress):
+    """An SVD session through websockets with each other residual coding:
+    the client restores full frames at its own gaze, and the stream's
+    track advertises the source dimensions."""
+    port = _free_port()
+    server = _server(max_frames=5, sat_compression="svd", svd_wire_compress=compress)
+    frames = []
+    client = _client(port, video="synthetic://96x64@30/20", max_frames=4,
+                     gaze_source=lambda i: (0.4, 0.6),
+                     frame_sink=lambda f, meta: frames.append(f))
+    stats = _serve(server, port, client.run)
+    assert stats.frames == 4 and len(frames) == 4
+    assert all(f.shape == (64, 96, 3) and f.dtype == "uint8" for f in frames)
+    assert stats.by_gaze.keys() == {gaze_to_index(0.4, 0.6)}
+
+
+def test_svd_client_rejects_resolution_mismatch():
+    """An fxsv track carries the source dimensions: a client configured
+    for another source fails loudly."""
+    port = _free_port()
+    server = _server(max_frames=4, sat_compression="svd")
+    bad = FoveaxConfig(
+        source_width=64, source_height=64, reduced_width=48, reduced_height=32
+    )
+    client = FoveaxClient(f"ws://127.0.0.1:{port}", video="synthetic://96x64@30/10",
+                          config=bad, max_frames=4, device="cpu")
+
+    async def body():
+        with pytest.raises(ValueError, match="client pipeline expects 64x64"):
+            await client.run()
+
+    _serve(server, port, body)
