@@ -88,6 +88,19 @@ Phases, each of which raises on failure (exit code 1):
    differ, the metrics of a frame against its SAT-path restore by their
    absolute difference, each inside a stated bound.  Host ms of each on
    the card, synchronised.
+8. The command-line interface on the card (``foveax_torch.cli.main.main``,
+   in this process) at 1920x1080 -> 1072x608 on ``synthetic://`` sources,
+   each subcommand run on the card with the launch counts read around it,
+   then with ``--device cpu`` on the same input: ``single_frame`` (logrect
+   and logrect_point) and ``interpolate_sampled`` write byte-equal PNGs;
+   ``foveate_no_encoding`` and ``encode_bitrate`` (OpenCV writer) over 4
+   frames of ``--gaze-trace synthetic:1``, then ``decode`` of the card's
+   encoded file, give equal decoded frames; ``gaze_eval`` prints the same
+   lines.  Then on the card only: ``perf --resolutions 1080p 4k --frames 8
+   --clients 8`` with the default sampler and with ``--sampler sat``,
+   ``stages`` (``5/5 stages passed``) and ``doctor`` (exit code 0).  Every
+   call's launch counts must be :data:`CLI_EXPECTED`'s.  Prints ``perf``'s
+   and ``stages``' lines beside the card's name and power limit.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -98,16 +111,21 @@ no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from foveax_torch import FoveaxClient, FoveaxConfig, FoveaxServer, FoveationPipeline
+from foveax_torch.cli import main as cli
 from foveax_torch.core import gnomonic, logpolar, metrics
 from foveax_torch.core import sample as core_sample
 from foveax_torch.core.logrect import make_point_grid
@@ -1343,6 +1361,150 @@ def phase_math(device: str = "cuda", cfg=None, viewport=VIEWPORT) -> dict:
     return report
 
 
+# Phase 8: the CLI at the serving shape.  Each call's launches on the card,
+# one entry per kernel that must launch (every other kernel: 0).  The
+# transcode's restore is the exact unwarp (plain torch, no kernel), as in
+# the JAX package; ``perf`` runs 8 + 6 chained steps per resolution and,
+# with ``--clients 8``, 8 + 6 batch steps (fused: one segreduce_xy for the
+# 8 gazes); ``stages``: stage 1 one foveate, stage 2 one SAT build, stage 3
+# 30 served and restored frames, stage 4 26 SAT-path steps, stage 5 61
+# one-SAT batches and 8 single foveates; ``doctor`` builds and launches K5
+# once.
+CLI_SOURCE = "synthetic://1920x1080@30/{}"
+CLI_FRAMES = 4
+PERF_STEPS = 2 * (8 + 6)  # two resolutions, chain(2) twice and chain(8 + 2)
+STAGE_EXPECTED = {
+    1: {"segreduce_xy": 1},
+    2: {"sat_build": 1},
+    3: {"segreduce_xy": 30, "unwarp_xy": 30},
+    4: {"sat_build": 26, "unwarp_xy": 26},
+    5: {"sat_build": 61, "segreduce_xy": 8},
+}
+CLI_EXPECTED = {
+    "single_frame logrect": {"segreduce_xy": 1},
+    "single_frame logrect_point": {},
+    "interpolate_sampled": {"segreduce_xy": 1},
+    "foveate_no_encoding": {"segreduce_xy": CLI_FRAMES},
+    "encode_bitrate": {"segreduce_xy": CLI_FRAMES},
+    "decode": {},
+    "gaze_eval": {},
+    "perf": {"segreduce_xy": 2 * PERF_STEPS, "unwarp_xy": PERF_STEPS},
+    "perf --sampler sat": {"sat_build": PERF_STEPS, "unwarp_xy": PERF_STEPS,
+                           "segreduce_xy": PERF_STEPS},
+    "stages": {name: sum(e.get(name, 0) for e in STAGE_EXPECTED.values())
+               for name in ("segreduce_xy", "unwarp_xy", "sat_build")},
+    "doctor": {"sat_build": 1},
+}
+
+
+def run_cli(argv: list[str], device: str) -> str:
+    """``foveax_torch.cli.main.main(["--device", device, *argv])`` in this
+    process; returns what it printed, raises unless it returned 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--device", device, *argv])
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv)} on {device}: exit code {rc}\n{out}")
+    return out
+
+
+def cli_card(kernels, what: str, argv: list[str]) -> str:
+    """One subcommand on the card, its launch counts held to
+    :data:`CLI_EXPECTED`."""
+    zero_counts(kernels)
+    out = run_cli(argv, "cuda")
+    expect_counts(f"cli {what}", read_counts(kernels), CLI_EXPECTED[what])
+    return out
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def video_frames(path: str) -> list[np.ndarray]:
+    from foveax_torch.io.video import VideoReader
+
+    with VideoReader(path) as r:
+        return [np.ascontiguousarray(f) for f in r]
+
+
+def same_videos(what: str, a: str, b: str, n: int) -> None:
+    fa, fb = video_frames(a), video_frames(b)
+    if len(fa) != n or len(fb) != n:
+        raise AssertionError(f"cli {what}: {len(fa)} and {len(fb)} frames, expected {n}")
+    for i, (x, y) in enumerate(zip(fa, fb)):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"cli {what}: frame {i} differs between card and CPU")
+
+
+def phase_cli(kernels) -> dict:
+    """The CLI on the card against ``--device cpu`` (module docstring,
+    phase 8); returns the printed ``perf`` and ``stages`` lines."""
+    t0 = time.perf_counter()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {dev: f"{tmp}/{dev}" for dev in ("cuda", "cpu")}
+        for d in out.values():
+            os.makedirs(d)
+        src = CLI_SOURCE.format(6)
+        for tech in ("logrect", "logrect_point"):
+            what = f"single_frame {tech}"
+            argv = lambda d: ["single_frame", src, "2", f"{d}/sf_{tech}",
+                              "--technique", tech, "--gaze", "0.37,0.61"]
+            cli_card(kernels, what, argv(out["cuda"]))
+            run_cli(argv(out["cpu"]), "cpu")
+            for suffix in ("_source.png", "_foveated.png"):
+                if read_bytes(f"{out['cuda']}/sf_{tech}{suffix}") != read_bytes(
+                        f"{out['cpu']}/sf_{tech}{suffix}"):
+                    raise AssertionError(f"cli {what}: {suffix} differs")
+        argv = lambda d: ["interpolate_sampled", src, "1", f"{d}/is", "--gaze", "0.2,0.7"]
+        cli_card(kernels, "interpolate_sampled", argv(out["cuda"]))
+        run_cli(argv(out["cpu"]), "cpu")
+        for suffix in ("_source.png", "_foveated.png", "_restored.png"):
+            if read_bytes(f"{out['cuda']}/is{suffix}") != read_bytes(f"{out['cpu']}/is{suffix}"):
+                raise AssertionError(f"cli interpolate_sampled: {suffix} differs")
+
+        trace = ["--gaze-trace", "synthetic:1", "--max-frames", str(CLI_FRAMES)]
+        for what, name in (("foveate_no_encoding", "rt.mp4"), ("encode_bitrate", "fov.mp4")):
+            argv = lambda d: [what, src, f"{d}/{name}", *trace]
+            cli_card(kernels, what, argv(out["cuda"]))
+            run_cli(argv(out["cpu"]), "cpu")
+            same_videos(what, f"{out['cuda']}/{name}", f"{out['cpu']}/{name}", CLI_FRAMES)
+        argv = lambda d: ["decode", f"{out['cuda']}/fov.mp4", f"{d}/dec.mp4",
+                          "--width", "1920", "--height", "1080", *trace]
+        cli_card(kernels, "decode", argv(out["cuda"]))
+        run_cli(argv(out["cpu"]), "cpu")
+        same_videos("decode", f"{out['cuda']}/dec.mp4", f"{out['cpu']}/dec.mp4", CLI_FRAMES)
+
+        argv = ["gaze_eval", "--frames", "300", "--saccades"]
+        if cli_card(kernels, "gaze_eval", argv) != run_cli(argv, "cpu"):
+            raise AssertionError("cli gaze_eval: printed lines differ")
+    compared_s = time.perf_counter() - t0
+
+    perf = ["perf", "--resolutions", "1080p", "4k", "--frames", "8", "--clients", "8"]
+    report["perf"] = cli_card(kernels, "perf", perf).splitlines()
+    report["perf --sampler sat"] = cli_card(
+        kernels, "perf --sampler sat", perf + ["--sampler", "sat"]).splitlines()
+    stages = cli_card(kernels, "stages", ["stages"])
+    report["stages"] = stages.splitlines()
+    if "5/5 stages passed" not in stages:
+        raise AssertionError(f"cli stages:\n{stages}")
+    report["doctor"] = [l for l in cli_card(kernels, "doctor", ["doctor"]).splitlines()
+                        if l.startswith(("device:", "kernels:"))]
+    card = card_line()
+    print(f"cli 1920x1080: single_frame (logrect, logrect_point), "
+          f"interpolate_sampled, foveate_no_encoding, encode_bitrate, decode and "
+          f"gaze_eval equal to --device cpu ({compared_s:.1f} s); launch counts "
+          f"as CLI_EXPECTED; card {card}", flush=True)
+    for key, lines in report.items():
+        for line in lines:
+            print(f"cli {key}: {line}  [{card}]", flush=True)
+    print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return report
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1383,6 +1545,7 @@ def main() -> int:
     phase_serve(kernels)
     phase_svd(kernels)
     phase_math()
+    phase_cli(kernels)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {

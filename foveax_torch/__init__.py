@@ -17,6 +17,8 @@ from foveax_torch.core.logrect import LogRectGrid, make_grid
 from foveax_torch.pipeline.frames import FoveationPipeline
 from foveax_torch.serve import FoveaxClient, FoveaxServer
 
+__version__ = "0.1.0"
+
 __all__ = [
     "DEFAULT_CONFIG",
     "FoveaxClient",
@@ -26,4 +28,5 @@ __all__ = [
     "LogRectGrid",
     "make_grid",
     "reduced_dim",
+    "__version__",
 ]

@@ -1,6 +1,9 @@
-"""Host-side IO: video decode/encode, wire codecs, fragment muxing (the
-port's own copies of the JAX package's jax-free ``io`` modules)."""
+"""Host-side IO: video decode/encode, PNG, gaze traces, wire codecs,
+fragment muxing (the port's own copies of the JAX package's jax-free
+``io`` modules)."""
 
+from foveax_torch.io.gaze import GazeViewPoint, GazeViewPoints
+from foveax_torch.io.png import load_png, save_png
 from foveax_torch.io.mux import FragmentReader, FragmentWriter, make_fragment_reader
 from foveax_torch.io.video import (
     LoopingReader,
@@ -19,6 +22,10 @@ from foveax_torch.io.wirecodec import (
 )
 
 __all__ = [
+    "GazeViewPoint",
+    "GazeViewPoints",
+    "load_png",
+    "save_png",
     "FragmentReader",
     "FragmentWriter",
     "LoopingReader",

@@ -37,6 +37,11 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# nvcc processes started by this process (the CLI's ``stages`` checks that
+# a moving gaze starts none), counted under a lock: builds may start from
+# several threads.
+nvcc_runs = 0
+_runs_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -59,6 +64,7 @@ def library_path(name: str) -> Path:
 def _start_build(name: str):
     """Start one nvcc for ``csrc/<name>.cu``; returns (process, tmp, out)
     or None when the library is already built."""
+    global nvcc_runs
     out = library_path(name)
     if out.exists():
         return None
@@ -68,6 +74,8 @@ def _start_build(name: str):
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
+    with _runs_lock:
+        nvcc_runs += 1
     return proc, tmp, out
 
 

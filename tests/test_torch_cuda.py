@@ -445,3 +445,50 @@ def test_math_on_card(pipe):
     assert all(report[name]["equal"] for name in (
         "sample_rect_point", "sample_rect_360_from_sat", "expand_sampled_rect",
         "sample_logpolar", "build_pyramid", "sample_logpolar_pyramid"))
+
+
+CLI_SOURCE = "synthetic://1920x512@30/6"
+
+
+@pytest.mark.parametrize("what", ["single_frame", "foveate_no_encoding"])
+def test_cli_on_card_equals_cpu(pipe, tmp_path, what):
+    """The CLI on the card at 1920x512 -> 1072x288 against ``--device
+    cpu`` on the same source: PNGs byte-equal, transcoded frames equal;
+    ``segreduce_xy`` once per frame, no unwarp kernel (the transcode
+    restores through the exact unwarp)."""
+    kernels = chip_smoke.kernel_table()
+    if what == "single_frame":
+        argv = lambda d: ["single_frame", CLI_SOURCE, "2", f"{d}/sf", "--gaze", "0.37,0.61"]
+        frames = 1
+    else:
+        argv = lambda d: [what, CLI_SOURCE, f"{d}/rt.mp4", "--gaze-trace",
+                          "synthetic:1", "--max-frames", "4"]
+        frames = 4
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+    chip_smoke.zero_counts(kernels)
+    chip_smoke.run_cli(argv(tmp_path / "cuda"), "cuda")
+    chip_smoke.expect_counts(what, chip_smoke.read_counts(kernels),
+                             {"segreduce_xy": frames})
+    chip_smoke.run_cli(argv(tmp_path / "cpu"), "cpu")
+    if what == "single_frame":
+        for suffix in ("_source.png", "_foveated.png"):
+            assert (tmp_path / "cuda" / f"sf{suffix}").read_bytes() == (
+                tmp_path / "cpu" / f"sf{suffix}").read_bytes()
+    else:
+        chip_smoke.same_videos(what, str(tmp_path / "cuda" / "rt.mp4"),
+                               str(tmp_path / "cpu" / "rt.mp4"), frames)
+
+
+@pytest.mark.parametrize("stage", [3, 4, 5])
+def test_cli_stage_on_card(pipe, stage):
+    """Stages 3-5 of the CLI's ``stages`` on the card at their fixed
+    shapes (1080p stream, 4K SAT path with viewport, 8 gazes at 4K): each
+    passes, with the launch counts chip_smoke.py expects of it."""
+    from foveax_torch.cli import stages
+
+    kernels = chip_smoke.kernel_table()
+    chip_smoke.zero_counts(kernels)
+    assert stages.STAGES[stage - 1](device="cuda")
+    chip_smoke.expect_counts(f"stage {stage}", chip_smoke.read_counts(kernels),
+                             chip_smoke.STAGE_EXPECTED[stage])

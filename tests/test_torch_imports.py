@@ -56,8 +56,49 @@ def test_port_and_smoke_import_neither_jax_nor_foveax():
         "foveax_torch.serve.server", "foveax_torch.serve.client",
         "foveax_torch.io.mux", "foveax_torch.io.video",
         "foveax_torch.io.wirecodec", "foveax_torch.native",
+        "foveax_torch.io.png", "foveax_torch.io.gaze",
+        "foveax_torch.pipeline.runner", "foveax_torch.pipeline.profiling",
+        "foveax_torch.cli.main", "foveax_torch.cli.stages",
+        "foveax_torch.cli.ladder",
     ):
         assert name in report["modules"]
+
+
+_CLI_PROBE = """
+import json, sys
+from foveax_torch.cli.main import main
+from foveax_torch.cli import stages
+out, src = sys.argv[1], "synthetic://96x64@30/3"
+cpu = ["--device", "cpu"]
+rcs = [
+    main(cpu + ["single_frame", src, "1", out + "/a"]),
+    main(cpu + ["single_frame", src, "1", out + "/b", "--technique", "logpolar_pyramid"]),
+    main(cpu + ["interpolate_sampled", src, "0", out + "/c"]),
+    main(cpu + ["viewport", src, "0", out + "/d.png", "--width", "32", "--height", "16"]),
+    main(cpu + ["montage", src, "0", out + "/e.jpg"]),
+    main(cpu + ["svd_bench", src, "--rank", "4", "--iters", "1"]),
+    main(cpu + ["quality", src, "--techniques", "logrect", "logpolar"]),
+    main(cpu + ["foveate_no_encoding", src, out + "/f.mp4"]),
+    main(cpu + ["doctor"]),
+    main(["gaze_eval", "--frames", "30"]),
+    int(not stages.stage2_sat_roundtrip("cpu")),
+]
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "foveax")]
+print(json.dumps({"rcs": rcs, "bad": bad}))
+"""
+
+
+def test_cli_subcommands_load_neither_jax_nor_foveax(tmp_path):
+    """Running the port's subcommands (on the CPU) loads no module of JAX
+    or of the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CLI_PROBE, str(tmp_path)], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300, check=True,
+    )
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["rcs"] == [0] * 11
+    assert report["bad"] == []
 
 
 _WITHOUT_OPTIONAL = """
@@ -98,7 +139,9 @@ def test_port_imports_without_websockets_or_cv2():
 
 def test_smoke_source_imports():
     """chip_smoke.py names only the standard library (asyncio for the
-    serve phase's in-memory connection), numpy, torch and foveax_torch."""
+    serve phase's in-memory connection; contextlib, io, os and tempfile
+    for the CLI phase's captured output and files), numpy, torch and
+    foveax_torch."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     roots = set()
     for node in ast.walk(tree):
@@ -107,7 +150,8 @@ def test_smoke_source_imports():
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
     assert roots <= {
-        "__future__", "asyncio", "json", "statistics", "subprocess", "sys", "time",
+        "__future__", "asyncio", "contextlib", "io", "json", "os", "statistics",
+        "subprocess", "sys", "tempfile", "time",
         "numpy", "torch", "foveax_torch",
     }, roots
 
