@@ -101,6 +101,29 @@ Phases, each of which raises on failure (exit code 1):
    ``stages`` (``5/5 stages passed``) and ``doctor`` (exit code 0).  Every
    call's launch counts must be :data:`CLI_EXPECTED`'s.  Prints ``perf``'s
    and ``stages``' lines beside the card's name and power limit.
+9. Multi-device serving (``foveax_torch.parallel``) on a 2x2 (data x
+   space) mesh: four distinct cards where four are visible, else
+   ``cuda:0`` for all four entries (printed).  ``dryrun_multichip(4)``
+   (``foveax_torch/graft_entry.py``), then at 4K (3840x2160 -> 2144x1200)
+   over the 8 gazes of :data:`BATCH_GAZES`: ``sharded_build_sat`` (K5 +2,
+   one launch a space block), ``multi_client_step`` (reduced and restored
+   frames; K5 +2, no unwarp kernel: the exact unwarp),
+   ``frame_parallel_roundtrip`` over 4 frames (K5 +4),
+   ``sharded_sample_batch_fused`` (``segreduce_xy`` +2, one launch a data
+   shard) and both ``jit_serve_parts`` pairs, each with its launches read
+   around it and its outputs equal (tolerance 0) to the single-device path
+   on the card and to the same call on a mesh of CPU entries.  Then the
+   broadcast ``FoveaxServer(mesh=...)`` at 1920x1080 -> 1072x608 through
+   :func:`memory_pair` (4 clients, 6 ticks, ``batch_sampler`` "fused" then
+   "sat"; ``segreduce_xy`` twice a served tick or K5 twice a tick, every
+   served and restored frame equal to the CPU path as phase 5 checks it),
+   ``place_videos="round_robin"``'s ``_next_device()`` (printed) and a
+   round-robin broadcast of two videos, two clients each (each channel's
+   pipeline on the next card where several are visible; frames equal to
+   the CPU path, one ``segreduce_xy`` a served tick a channel), and the
+   sharded 4K tick of each pair against the single-device ``batch_pair``
+   (host clock, synchronised) with the bytes the SAT gather moves, beside
+   the card's name and power limit.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -131,6 +154,7 @@ from foveax_torch.core import sample as core_sample
 from foveax_torch.core.logrect import make_point_grid
 from foveax_torch.core.sat import build_sat
 from foveax_torch.core.svd_sat import compress_sat, sat_to_numpy
+from foveax_torch.graft_entry import dryrun_mesh_devices, dryrun_multichip
 from foveax_torch.io.video import SyntheticReader
 from foveax_torch.serve.client import SvdDecoder
 from foveax_torch.kernels import fused_select as fs
@@ -138,6 +162,8 @@ from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
 from foveax_torch.kernels import unwarp as uw
 from foveax_torch.kernels.build import build
+from foveax_torch.parallel import make_mesh
+from foveax_torch.parallel import sharded
 
 SHAPES = {"1080p": (1920, 1080), "4k": (3840, 2160)}
 GAZES = [(0.5, 0.5), (0.0, 0.0), (1.0, 1.0), (0.999, 0.001), (0.03, 0.4)]
@@ -498,9 +524,14 @@ def zero_counts(kernels) -> None:
         kernel.launches = 0
 
 
+def sync_all() -> None:
+    """Wait for every visible card (a mesh's blocks may lie on several)."""
+    for k in range(torch.cuda.device_count() if torch.cuda.is_available() else 0):
+        torch.cuda.synchronize(k)
+
+
 def read_counts(kernels) -> dict[str, int]:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    sync_all()
     return {name: k.launches for name, (k, _, _) in kernels.items()}
 
 
@@ -889,20 +920,22 @@ async def _serve_one(server, client):
         await asyncio.wait_for(handler, SERVE_TIMEOUT_S)
 
 
-async def _serve_channel(server, clients, spec: str):
-    """Clients on one broadcast channel: run until the channel has served
-    its ``max_frames`` ticks, then close every connection."""
+async def _serve_channel(server, clients, specs: list[str]):
+    """Clients on the broadcast channels of ``specs``: run until every
+    channel has served its ``max_frames`` ticks, then close every
+    connection."""
     pairs = [memory_pair() for _ in clients]
     handlers = [asyncio.create_task(server.handle(s)) for s, _ in pairs]
     runs = [asyncio.create_task(c.run_on(e)) for c, (_, e) in zip(clients, pairs)]
 
-    async def channel_done():
+    async def channel_done(spec):
         while spec not in server.channels:
             await asyncio.sleep(0.005)
         await server.channels[spec].task
 
     try:
-        await asyncio.wait_for(channel_done(), SERVE_TIMEOUT_S)
+        await asyncio.wait_for(asyncio.gather(*map(channel_done, specs)),
+                               SERVE_TIMEOUT_S)
     finally:
         for s, _ in pairs:
             await s.close()
@@ -964,13 +997,14 @@ def serve_session(cfg, device, kernels=None):
     return server, client, launches
 
 
-def serve_broadcast(cfg, device, batch_sampler: str, kernels=None):
+def serve_broadcast(cfg, device, batch_sampler: str, kernels=None, mesh=None):
     """``BROADCAST_CLIENTS`` clients, each at its own gaze, on one channel
-    of ``BROADCAST_TICKS`` ticks.  Returns (server, clients, launches)."""
+    of ``BROADCAST_TICKS`` ticks, sharded over ``mesh`` where one is
+    given.  Returns (server, clients, launches)."""
     w, h = cfg.source_width, cfg.source_height
     spec = f"synthetic://{w}x{h}@30/{BROADCAST_TICKS}"
     server = CapturingServer(cfg, max_frames=BROADCAST_TICKS, broadcast=True,
-                             batch_sampler=batch_sampler, device=device)
+                             batch_sampler=batch_sampler, device=device, mesh=mesh)
     clients = [
         CapturingClient("memory", video=spec, config=cfg, device=device,
                         gaze_source=lambda i, g=g: g)
@@ -978,7 +1012,7 @@ def serve_broadcast(cfg, device, batch_sampler: str, kernels=None):
     ]
     if kernels:
         zero_counts(kernels)
-    asyncio.run(_serve_channel(server, clients, spec))
+    asyncio.run(_serve_channel(server, clients, [spec]))
     launches = read_counts(kernels) if kernels else {}
     if server.channels:
         raise AssertionError(f"broadcast {batch_sampler}: channel not torn down")
@@ -996,17 +1030,19 @@ def served_ticks(clients) -> int:
     return len({m.frameNum for c in clients for _, m in c.restored})
 
 
-def serve_expected(batch_sampler, clients) -> dict[str, int]:
+def serve_expected(batch_sampler, clients, mesh=None) -> dict[str, int]:
     """The launches a serve run must show: ``batch_sampler`` None for a
     session (the fused sampler once per frame), else the broadcast
     channel's (one fused launch per served tick, or one K5 launch per tick
-    read); ``unwarp_xy`` once per frame the clients restored."""
+    read; over a mesh, one per data shard, or one per space block);
+    ``unwarp_xy`` once per frame the clients restored."""
     frames = sum(c.stats.frames for c in clients)
+    n_data, n_space = (mesh.shape["data"], mesh.shape["space"]) if mesh else (1, 1)
     if batch_sampler is None:
         return {"segreduce_xy": frames, "unwarp_xy": frames}
     if batch_sampler == "fused":
-        return {"segreduce_xy": served_ticks(clients), "unwarp_xy": frames}
-    return {"sat_build": BROADCAST_TICKS, "unwarp_xy": frames}
+        return {"segreduce_xy": n_data * served_ticks(clients), "unwarp_xy": frames}
+    return {"sat_build": n_space * BROADCAST_TICKS, "unwarp_xy": frames}
 
 
 def serve_timings(server, clients) -> str:
@@ -1182,7 +1218,7 @@ def serve_svd_broadcast(cfg, device, kernels=None):
     ]
     if kernels:
         zero_counts(kernels)
-    asyncio.run(_serve_channel(server, clients, spec))
+    asyncio.run(_serve_channel(server, clients, [spec]))
     launches = read_counts(kernels) if kernels else {}
     if server.channels:
         raise AssertionError("svd broadcast: channel not torn down")
@@ -1292,17 +1328,13 @@ def time_host(fn, reps: int = 5) -> float:
     """Median host ms of ``fn``, synchronised with the card where there is
     one, after a warm-up call."""
 
-    def sync():
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-
     fn()
     times = []
     for _ in range(reps):
-        sync()
+        sync_all()
         t0 = time.perf_counter()
         fn()
-        sync()
+        sync_all()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
@@ -1505,6 +1537,246 @@ def phase_cli(kernels) -> dict:
     return report
 
 
+# Phase 9: multi-device serving.  A (data, space) = (2, 2) mesh; the
+# sharded functions at 4K over the 8 gazes of BATCH_GAZES, the transcode
+# over MESH_FRAMES frames, the mesh server at 1080p.
+MESH_DATA, MESH_SPACE = 2, 2
+MESH_FRAMES = 4
+
+
+def mesh_devices(device: str = "cuda") -> tuple[list[torch.device], str]:
+    """Phase 9's four mesh entries and how they were chosen: four distinct
+    cards where four are visible, else ``cuda:0`` four times (the CPU four
+    times for ``device="cpu"``)."""
+    n = MESH_DATA * MESH_SPACE
+    if device == "cpu":
+        return [torch.device("cpu")] * n, f"the CPU {n} times"
+    count = torch.cuda.device_count()
+    if count >= n:
+        return ([torch.device("cuda", k) for k in range(n)],
+                f"{n} distinct GPUs, cuda:0-{n - 1}")
+    return [torch.device("cuda", 0)] * n, f"cuda:0 {n} times ({count} GPU visible)"
+
+
+def mesh_cases(pipe, mesh, frame, frames, centers, centers_b) -> dict:
+    """Phase 9's sharded calls as name -> (sharded call, the single-device
+    call it must equal, the launches it must make).  ``frame`` (H, W, 3)
+    and ``centers`` (8, 2) feed the serving functions, ``frames`` (B, H,
+    W, 3) and ``centers_b`` (B, 2) the transcode."""
+    grid = pipe.grid
+    n_data, n_space = mesh.shape["data"], mesh.shape["space"]
+    build, sample = sharded.jit_serve_parts(grid, mesh)
+    prepare, fsample = sharded.jit_serve_parts_fused(grid, mesh)
+    sat_pair, fused_pair = pipe.batch_pair("sat"), pipe.batch_pair("fused")
+
+    def restored(reduced, cs):
+        return torch.stack([pipe.unwarp(r, c) for r, c in zip(reduced, cs)])
+
+    def single_step():
+        reduced = pipe.sample_batch(build_sat(frame), centers)
+        return reduced, restored(reduced, centers)
+
+    def single_roundtrip():
+        reduced = torch.stack([pipe.sample(build_sat(f), c)
+                               for f, c in zip(frames, centers_b)])
+        return reduced, restored(reduced, centers_b)
+
+    def single_fused():
+        return (fused_pair[1](fused_pair[0](frame), centers),)
+
+    return {
+        "sharded_build_sat": (lambda: (sharded.sharded_build_sat(frame, mesh),),
+                              lambda: (build_sat(frame),), {"sat_build": n_space}),
+        "multi_client_step": (
+            lambda: sharded.multi_client_step(frame, centers, grid, mesh),
+            single_step, {"sat_build": n_space}),
+        "frame_parallel_roundtrip": (
+            lambda: sharded.frame_parallel_roundtrip(frames, centers_b, grid, mesh),
+            single_roundtrip, {"sat_build": len(frames)}),
+        "sharded_sample_batch_fused": (
+            lambda: (sharded.sharded_sample_batch_fused(frame, centers, grid, mesh),),
+            single_fused, {"segreduce_xy": n_data}),
+        "jit_serve_parts": (lambda: (sample(build(frame), centers),),
+                            lambda: (sat_pair[1](sat_pair[0](frame), centers),),
+                            {"sat_build": n_space}),
+        "jit_serve_parts_fused": (lambda: (fsample(prepare(frame), centers),),
+                                  single_fused, {"segreduce_xy": n_data}),
+    }
+
+
+def same_on_host(what: str, got, want) -> None:
+    """Equal outputs (tolerance 0; uint32 through the int32 view), each a
+    tensor or a ``Sharded``, compared on the host."""
+    for k, (g, w_) in enumerate(zip(got, want, strict=True)):
+        g, w_ = g.cpu(), w_.cpu()
+        if g.dtype == torch.uint32:
+            g, w_ = g.view(torch.int32), w_.view(torch.int32)
+        if g.shape != w_.shape or g.dtype != w_.dtype or not torch.equal(g, w_):
+            raise AssertionError(f"mesh {what}: output {k} differs")
+
+
+def mesh_dryrun(kernels, device: str) -> None:
+    """``dryrun_multichip(4)`` on ``device``, its launches counted: K5 per
+    space block (``multi_client_step``, the SAT pair), per frame (the
+    transcode) and per distinct device (the placement); ``segreduce_xy``
+    per data shard (the fused sampler and pair).  Its outputs must equal
+    the CPU port's, and the sharded step, the SAT pair and every placement
+    must agree where they compute the same thing."""
+    n = MESH_DATA * MESH_SPACE
+    if kernels:
+        zero_counts(kernels)
+    out = dryrun_multichip(n, device)
+    if kernels:
+        distinct = len(set(dryrun_mesh_devices(n, device)))
+        expect_counts("mesh dryrun_multichip", read_counts(kernels), {
+            "sat_build": 2 * MESH_SPACE + n + distinct,
+            "segreduce_xy": 2 * MESH_DATA})
+    cpu = dryrun_multichip(n, "cpu")
+    placed = [v for k, v in out.items() if k.startswith("placement.")]
+    same_on_host("dryrun placement", placed,
+                 [cpu[f"placement.{torch.device('cpu')}"]] * len(placed))
+    keys = [k for k in cpu if not k.startswith("placement.")]
+    same_on_host("dryrun", [out[k] for k in keys], [cpu[k] for k in keys])
+    same_on_host("dryrun serve pair", [out["jit_serve_parts"]],
+                 [out["multi_client_step.reduced"]])
+    same_on_host("dryrun fused pair", [out["jit_serve_parts_fused"]],
+                 [out["sharded_sample_batch_fused"]])
+    print(f"mesh dryrun_multichip({n}) on {device}: {len(out)} outputs equal to "
+          "the CPU port's", flush=True)
+
+
+def sat_gather_bytes(mesh, h: int, w: int) -> dict[str, int]:
+    """What ``sharded_sample_batch`` copies to gather a (3, H, W) uint32
+    SAT: onto each distinct data-shard entry, the blocks that lie on
+    another device (``peer_bytes``) and the whole SAT it concatenates
+    there (``concat_bytes``)."""
+    block = 3 * (h // mesh.shape["space"]) * w * 4
+    targets = set(row[0] for row in mesh.devices)
+    peer = sum(block for t in targets for d in mesh.devices[0] if d != t)
+    return {"sat_bytes": 3 * h * w * 4, "gathers": len(targets),
+            "peer_bytes": peer, "concat_bytes": len(targets) * 3 * h * w * 4}
+
+
+def mesh_calls(kernels, cfg, device: str, mesh):
+    """Each sharded call of :func:`mesh_cases` on ``mesh`` at ``cfg``'s
+    shape, its launches read around it and its outputs held to the
+    single-device path and to the same call on a mesh of CPU entries.
+    Returns the (pipeline, frame, centers) it ran on."""
+    rng = np.random.default_rng(SEED + 5)
+    h, w = cfg.source_height, cfg.source_width
+    host_frames = rng.integers(0, 256, (1 + MESH_FRAMES, h, w, 3), np.uint8)
+    runs = {}
+    for dev, m in ((device, mesh), ("cpu", make_mesh(
+            MESH_SPACE, MESH_DATA, devices=mesh_devices("cpu")[0]))):
+        pipe = FoveationPipeline(cfg, device=dev)
+        frames = torch.from_numpy(host_frames).to(pipe.device)
+        centers = torch.tensor(BATCH_GAZES, dtype=torch.float32, device=pipe.device)
+        runs[dev] = (pipe, frames[0], centers, mesh_cases(
+            pipe, m, frames[0], frames[1:], centers, centers[:MESH_FRAMES]))
+    cpu_cases = runs["cpu"][3]
+    for name, (call, single, expected) in runs[device][3].items():
+        if kernels:
+            zero_counts(kernels)
+        got = call()
+        launches = read_counts(kernels) if kernels else {}
+        if kernels:
+            expect_counts(f"mesh {name}", launches, expected)
+        same_on_host(f"{name} vs the single-device path", got, single())
+        same_on_host(f"{name} vs the CPU port", got, cpu_cases[name][0]())
+        print(f"mesh {name} {w}x{h}: launches {launches}, equal to the "
+              "single-device path and the CPU port", flush=True)
+    return runs[device][:3]
+
+
+def mesh_serve(kernels, cfg, device: str, mesh, batch_sampler: str) -> None:
+    """The broadcast ``FoveaxServer(mesh=...)`` through the in-memory
+    pair: frames equal to the CPU path (:func:`check_served`), launches
+    one per data shard a served tick (fused) or per space block a tick
+    (SAT)."""
+    _, clients, launches = serve_broadcast(cfg, device, batch_sampler, kernels,
+                                           mesh=mesh)
+    if kernels:
+        expect_counts(f"mesh serve {batch_sampler}", launches,
+                      serve_expected(batch_sampler, clients, mesh))
+    print(f"mesh serve broadcast {batch_sampler} {cfg.source_width}x"
+          f"{cfg.source_height}: {len(clients)} clients, {BROADCAST_TICKS} "
+          f"ticks ({served_ticks(clients)} served), frames per client "
+          f"{[c.stats.frames for c in clients]}, launches {launches}, equal to "
+          "the CPU path", flush=True)
+
+
+def serve_round_robin(cfg, device: str, kernels=None):
+    """Two videos on a ``place_videos="round_robin"`` broadcast server
+    (fused), two clients each: each channel's pipeline on the next CUDA
+    device where several are visible (the server's own device otherwise).
+    Every served and restored frame is held to the CPU path; returns
+    (launches, expected launches, the devices the pipelines ran on)."""
+    w, h = cfg.source_width, cfg.source_height
+    # Synthetic frames depend on the size and the index only: both videos
+    # show the same frames.
+    specs = [f"synthetic://{w}x{h}@30/{BROADCAST_TICKS + k}" for k in range(2)]
+    server = CapturingServer(cfg, max_frames=BROADCAST_TICKS, broadcast=True,
+                             batch_sampler="fused", place_videos="round_robin",
+                             device=device)
+    clients = [
+        CapturingClient("memory", video=specs[k // 2], config=cfg, device=device,
+                        gaze_source=lambda i, g=g: g)
+        for k, g in enumerate(SERVE_GAZES[:4])
+    ]
+    if kernels:
+        zero_counts(kernels)
+    asyncio.run(_serve_channel(server, clients, specs))
+    launches = read_counts(kernels) if kernels else {}
+    if server.channels or not all(c.stats.frames for c in clients):
+        raise AssertionError(f"round_robin: frames per client "
+                             f"{[c.stats.frames for c in clients]}")
+    check_served(cfg, server, clients, synthetic_frames(specs[0], BROADCAST_TICKS),
+                 "round_robin")
+    expected = {"segreduce_xy": served_ticks(clients[:2]) + served_ticks(clients[2:]),
+                "unwarp_xy": sum(c.stats.frames for c in clients)}
+    return launches, expected, sorted({str(key[2]) for key in server._pipelines})
+
+
+def phase_mesh(kernels, cfg=None, serve_cfg=None, device: str = "cuda") -> dict:
+    """Multi-device serving on ``device`` (module docstring, phase 9):
+    each sharded call's launches and outputs against the single-device
+    path and the CPU port, the dry run, the mesh server, round-robin
+    placement and the sharded tick's time; returns the timings."""
+    t0 = time.perf_counter()
+    cfg = cfg or FoveaxConfig().with_source(*SHAPES["4k"])
+    serve_cfg = serve_cfg or FoveaxConfig()
+    devices, how = mesh_devices(device)
+    mesh = make_mesh(MESH_SPACE, MESH_DATA, devices=devices)
+    print(f"mesh: {MESH_DATA}x{MESH_SPACE} (data x space) over {how}", flush=True)
+    mesh_dryrun(kernels, device)
+    pipe, frame, centers = mesh_calls(kernels, cfg, device, mesh)
+    for batch_sampler in ("fused", "sat"):
+        mesh_serve(kernels, serve_cfg, device, mesh, batch_sampler)
+    server = FoveaxServer(serve_cfg, place_videos="round_robin", device=device)
+    placed = [str(server._next_device()) for _ in range(4)]
+    print(f"mesh round_robin _next_device() x4: {placed}", flush=True)
+    launches, expected, placed = serve_round_robin(serve_cfg, device, kernels)
+    if kernels:
+        expect_counts("mesh round_robin serve", launches, expected)
+    print(f"mesh round_robin serve: 2 videos x 2 clients, pipelines on {placed}, "
+          f"launches {launches}, equal to the CPU path", flush=True)
+
+    report = {"gather": sat_gather_bytes(mesh, cfg.source_height, cfg.source_width)}
+    pairs = {"sat": sharded.jit_serve_parts(pipe.grid, mesh),
+             "fused": sharded.jit_serve_parts_fused(pipe.grid, mesh)}
+    for name, (prepare, sample) in pairs.items():
+        single_prepare, single_sample = pipe.batch_pair(name)
+        report[f"tick_{name}_ms"] = time_host(lambda: sample(prepare(frame), centers), 10)
+        report[f"single_{name}_ms"] = time_host(
+            lambda: single_sample(single_prepare(frame), centers), 10)
+    card = card_line() if device == "cuda" else "cpu"
+    print(f"mesh timing {cfg.source_width}x{cfg.source_height}, {len(BATCH_GAZES)} "
+          f"gazes (host ms, synchronised, median of 10): {json.dumps(report)}  "
+          f"[{card}]", flush=True)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return report
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1546,6 +1818,7 @@ def main() -> int:
     phase_svd(kernels)
     phase_math()
     phase_cli(kernels)
+    phase_mesh(kernels)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {

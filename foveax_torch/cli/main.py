@@ -111,19 +111,24 @@ def cmd_serve(args) -> int:
                 file=sys.stderr,
             )
             return 1
-        n_devices = (
-            torch.cuda.device_count() if args.device.type == "cuda" else 1
-        )
-        if n_devices < data * space:
-            print(
-                f"--mesh {args.mesh} needs {data * space} devices, have "
-                f"{n_devices}",
-                file=sys.stderr,
-            )
-            return 1
-        # The server raises NotImplementedError for any mesh until the
-        # sharded serving path is ported (ROADMAP M10).
-        mesh = (data, space)
+        from foveax_torch.parallel import make_mesh
+
+        # On the card the mesh takes the visible CUDA devices; under
+        # --device cpu every entry is the CPU (the same decomposition on
+        # one device, as the tests run it).
+        devices = None
+        if args.device.type == "cuda":
+            n_devices = torch.cuda.device_count()
+            if n_devices < data * space:
+                print(
+                    f"--mesh {args.mesh} needs {data * space} devices, have "
+                    f"{n_devices}",
+                    file=sys.stderr,
+                )
+                return 1
+        else:
+            devices = [args.device] * (data * space)
+        mesh = make_mesh(space, data, devices=devices)
     server = FoveaxServer(
         cfg,
         video_dir=args.video_dir,
@@ -1274,15 +1279,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--mesh", default="",
         help="shard broadcast serving over a DATAxSPACE device mesh, e.g. "
-        "2x4 (requires --broadcast; not ported yet: the server raises "
-        "NotImplementedError)",
+        "2x4 (requires --broadcast; the visible CUDA devices, or as many "
+        "CPU entries under --device cpu)",
     )
     p.add_argument(
         "--place-videos", default="default",
         choices=["default", "round_robin"],
         help="round_robin: place each video's pipeline on its own local "
-        "device (over more than one device not ported yet: the server "
-        "raises NotImplementedError)",
+        "device (the visible CUDA devices in turn; one device serves all)",
     )
     p.add_argument(
         "--batch-sampler", default="auto",

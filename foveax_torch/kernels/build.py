@@ -142,7 +142,9 @@ class Kernel:
         self._count_lock = threading.Lock()
 
     def launch(self, *args) -> None:
-        """Launch on the current CUDA stream; raise on a launch error."""
+        """Launch on the current CUDA stream; raise on a launch error.
+        The wrappers make their tensors' device current around the call,
+        so a kernel launches on the card its tensors lie on."""
         if self._fn is None:
             fn = getattr(load(self.source), self.symbol)
             fn.argtypes = [*self.argtypes, ctypes.c_void_p]

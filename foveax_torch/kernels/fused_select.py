@@ -66,9 +66,10 @@ def sat_select_rows(
     if sel.numel():
         plan = sat_plan(h, w)
         totals = torch.empty(plan.scratch_words, dtype=torch.uint32, device=dev)
-        SELECT_ROWS.launch(
-            frame_rcw.data_ptr(), pyc.data_ptr(), pymc.data_ptr(),
-            sel.data_ptr(), totals.data_ptr(), h, w, n, plan.band_rows,
-            plan.threads, plan.chunks_per_thread,
-        )
+        with torch.cuda.device(dev):
+            SELECT_ROWS.launch(
+                frame_rcw.data_ptr(), pyc.data_ptr(), pymc.data_ptr(),
+                sel.data_ptr(), totals.data_ptr(), h, w, n, plan.band_rows,
+                plan.threads, plan.chunks_per_thread,
+            )
     return sel[0], sel[1]

@@ -124,9 +124,10 @@ def sat_scan(frame: torch.Tensor, *, in_layout: str = "hwc") -> torch.Tensor:
         totals = torch.empty(
             plan.scratch_words, dtype=torch.uint32, device=frame.device
         )
-        SAT_BUILD.launch(
-            frame.data_ptr(), c_stride, r_stride, x_stride, out.data_ptr(),
-            totals.data_ptr(), h, w, plan.band_rows, plan.threads,
-            plan.chunks_per_thread,
-        )
+        with torch.cuda.device(frame.device):
+            SAT_BUILD.launch(
+                frame.data_ptr(), c_stride, r_stride, x_stride, out.data_ptr(),
+                totals.data_ptr(), h, w, plan.band_rows, plan.threads,
+                plan.chunks_per_thread,
+            )
     return out

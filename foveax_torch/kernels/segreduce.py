@@ -80,10 +80,11 @@ def y_segment_reduce_batch(
     check_tensor(pmc, "pmc", torch.int32, (n, hr), dev)
     out = torch.empty((n, 3, hr, w), dtype=torch.uint16, device=dev)
     if out.numel():
-        Y_PASS.launch(
-            frame.data_ptr(), pc.data_ptr(), pmc.data_ptr(), out.data_ptr(),
-            n, h, w, hr,
-        )
+        with torch.cuda.device(dev):
+            Y_PASS.launch(
+                frame.data_ptr(), pc.data_ptr(), pmc.data_ptr(), out.data_ptr(),
+                n, h, w, hr,
+            )
     return out
 
 
@@ -140,11 +141,12 @@ def x_segment_reduce_batch(
     check_tensor(valid_y, "valid_y", torch.bool, (n, hr), dev)
     out = torch.empty((n, 3, hr, wr), dtype=torch.uint8, device=dev)
     if out.numel():
-        X_PASS.launch(
-            rows.data_ptr(), pxc.data_ptr(), pxmc.data_ptr(),
-            valid_x.data_ptr(), pyc.data_ptr(), pymc.data_ptr(),
-            valid_y.data_ptr(), out.data_ptr(), n, hr, w, wr,
-        )
+        with torch.cuda.device(dev):
+            X_PASS.launch(
+                rows.data_ptr(), pxc.data_ptr(), pxmc.data_ptr(),
+                valid_x.data_ptr(), pyc.data_ptr(), pymc.data_ptr(),
+                valid_y.data_ptr(), out.data_ptr(), n, hr, w, wr,
+            )
     return out
 
 
@@ -213,11 +215,12 @@ def segment_reduce_xy_batch(
         )
     out = torch.empty((n, 3, hr, wr), dtype=torch.uint8, device=dev)
     if out.numel():
-        XY_PASS.launch(
-            frame.data_ptr(), pxc.data_ptr(), pxmc.data_ptr(),
-            valid_x.data_ptr(), pyc.data_ptr(), pymc.data_ptr(),
-            valid_y.data_ptr(), out.data_ptr(), n, h, w, hr, wr, BAND_ROWS,
-        )
+        with torch.cuda.device(dev):
+            XY_PASS.launch(
+                frame.data_ptr(), pxc.data_ptr(), pxmc.data_ptr(),
+                valid_x.data_ptr(), pyc.data_ptr(), pymc.data_ptr(),
+                valid_y.data_ptr(), out.data_ptr(), n, h, w, hr, wr, BAND_ROWS,
+            )
     return out
 
 

@@ -89,10 +89,11 @@ def unwarp_xy(planar, xv, yv) -> torch.Tensor:
             check_tensor(t, f"{axis}_{name}", torch.int32, (n,), dev)
     out = torch.empty((3, ho, wo), dtype=torch.uint8, device=dev)
     if out.numel():
-        UNWARP_XY.launch(
-            planar.data_ptr(), *(t.data_ptr() for t in (*xv, *yv)),
-            out.data_ptr(), hr, wr, ho, wo, BAND_ROWS,
-        )
+        with torch.cuda.device(dev):
+            UNWARP_XY.launch(
+                planar.data_ptr(), *(t.data_ptr() for t in (*xv, *yv)),
+                out.data_ptr(), hr, wr, ho, wo, BAND_ROWS,
+            )
     return out
 
 

@@ -35,8 +35,14 @@ packed for the wire (``io/svdwire``) inside the executor call that
 ``ReadbackGuard`` bounds, and one gaze-independent ``fxsv`` blob per tick
 goes to every member: each client foveates at its own gaze.
 
-Not ported: multi-device serving (``mesh=``, ``place_videos="round_robin"``
-on more than one device, ROADMAP M10) raises ``NotImplementedError``.
+Multi-device serving: with ``mesh=`` (a ``foveax_torch.parallel`` mesh over
+``("data", "space")``) a broadcast channel runs the sharded pair of
+``parallel/sharded.py`` in place of ``batch_pair``: the fused pair
+(``segreduce_xy`` once per data shard a tick) or the SAT pair (K5 once per
+space block a tick, the SAT gathered onto each data shard); the member
+batch is padded to a multiple of the data axis with the last gaze.
+``place_videos="round_robin"`` gives each channel or session the next
+CUDA device, with a pipeline bound to it, where more than one is visible.
 """
 
 from __future__ import annotations
@@ -369,6 +375,12 @@ class BroadcastChannel:
         self.pipeline: FoveationPipeline | None = None
         self.dead = False
         self._read_future = None  # in-flight executor read, if any
+        # Sharded serving (server.mesh set): the (prepare, sample) pair of
+        # foveax_torch.parallel.sharded — the client batch split over
+        # `data` either way; the SAT pair also splits its scan over
+        # `space` rows, the fused pair copies the frame to each data shard
+        # once per tick and samples there.
+        self._sharded = None
         self._closing_task = None  # strong ref: loop holds tasks weakly
         # Members that already received streamInfo + the stream header
         # (channel-owned so leave() can force a re-send on rejoin).
@@ -401,8 +413,13 @@ class BroadcastChannel:
             if self.reader is None:
                 self.reader = self.server._resolve(self.video)
                 opened_reader = True
+                # Placement is fixed for the channel's lifetime: its
+                # pipeline is bound to the device.
+                device = self.server._next_device()
+                if device is not None:
+                    log.info("channel %s placed on %s", self.video, device)
                 self.pipeline = self.server._pipeline_for(
-                    self.reader.width, self.reader.height
+                    self.reader.width, self.reader.height, device
                 )
                 if (
                     self.server.batch_sampler == "fused"
@@ -431,6 +448,12 @@ class BroadcastChannel:
             raise
 
     def _join_inner(self, session: Session, cfg) -> None:
+        if (
+            self._sharded is None
+            and self.server.mesh is not None
+            and self.server.sat_compression != "svd"
+        ):
+            self._sharded = self._sharded_pair(cfg)
         if self.server.sat_compression == "svd":
             self.members[session] = self.server._svd_muxer(cfg)
         else:
@@ -458,6 +481,30 @@ class BroadcastChannel:
             self.task = asyncio.create_task(self._loop())
             self.task.add_done_callback(_log_task_failure)
             self.task.add_done_callback(lambda _t: self._teardown())
+
+    def _sharded_pair(self, cfg):
+        """The mesh's (prepare, sample) pair, by the policy of
+        ``batch_pair``: "auto" is fused where the pipeline is inside the
+        fused sampler's contract, the row-sharded SAT pair otherwise.  An
+        explicit "fused" off the contract already failed the join."""
+        from foveax_torch.parallel.sharded import (
+            jit_serve_parts,
+            jit_serve_parts_fused,
+        )
+
+        mesh, p = self.server.mesh, self.pipeline
+        mode = self.server.batch_sampler
+        if mode == "auto":
+            mode = "fused" if p.fused_ok else "sat"
+        if mode == "fused":
+            return jit_serve_parts_fused(p.grid, mesh, wrap_x=p.wrap_x)
+        space = mesh.shape["space"]
+        if cfg.source_height % space != 0:
+            raise ValueError(
+                f"mesh space axis ({space}) must divide the source "
+                f"height ({cfg.source_height})"
+            )
+        return jit_serve_parts(p.grid, mesh)
 
     def _teardown(self) -> None:
         """Remove the channel once its loop ends (video over, crash, or
@@ -583,6 +630,8 @@ class BroadcastChannel:
         # "fused".
         if self.server.sat_compression == "svd":
             build, batch_sample = p.build_sat, None
+        elif self._sharded is not None:
+            build, batch_sample = self._sharded
         else:
             build, batch_sample = p.batch_pair(self.server.batch_sampler)
         tick = 1.0 / self.server.config.fps
@@ -698,11 +747,17 @@ class BroadcastChannel:
             centers = [s.effective_center() for s, _ in members]
             for s_, _ in members:
                 s_.mark_gaze_applied()
+            padded = centers
+            if self._sharded is not None:
+                # The data axis splits the batch: pad it to a multiple of
+                # the axis size with the last gaze, trimmed after readback.
+                data = self.server.mesh.shape["data"]
+                padded = centers + [centers[-1]] * (-len(centers) % data)
             batch_np = await self._readback(
                 loop,
                 lambda: batch_sample(
-                    prepared, _stage(np.asarray(centers, dtype=np.float32))
-                ).cpu().numpy(),
+                    prepared, _stage(np.asarray(padded, dtype=np.float32))
+                ).cpu().numpy()[: len(centers)],
             )
             if batch_np is None:  # deadline missed: skip, stay alive
                 frame_num += 1
@@ -952,26 +1007,38 @@ class FoveaxServer:
                 "batch_sampler must stay 'sat' or 'auto'"
             )
         self.batch_sampler = batch_sampler
-        # Multi-device serving waits for the port of the JAX package's
-        # parallel/ (ROADMAP M10): a mesh shards one video over several
-        # devices, "round_robin" spreads videos over them.  With one
-        # device round_robin places everything on it, as the JAX
-        # package's does.
+        # Optional foveax_torch.parallel Mesh over ("data", "space"):
+        # broadcast channels split the SAT scan over `space` rows and the
+        # client batch over `data` (foveax_torch/parallel/sharded.py).
+        # None = the single-device pipeline.  There is no sharded "direct"
+        # sampler; the port refuses "direct" above in any case.
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded serving) is not ported yet (ROADMAP M10)"
-            )
+            names = tuple(mesh.axis_names)
+            if names != ("data", "space"):
+                raise ValueError(
+                    f'mesh axes must be ("data", "space"), got {names}'
+                )
+            if sat_compression == "svd":
+                log.warning(
+                    "--mesh is ignored with --sat-compression svd (the SVD "
+                    "blob is built once per tick on the default pipeline)"
+                )
+        # Video-set device placement: "round_robin" gives each video
+        # (channel or session) the next CUDA device at open time, with a
+        # pipeline bound to it — the second multi-device serving axis
+        # (shard the CLIENT BATCH over a mesh via --mesh, or the VIDEO
+        # SET across devices via this).  Mutually exclusive with --mesh,
+        # which shards ONE video's computation over all devices.
         if place_videos not in ("default", "round_robin"):
             raise ValueError(f"unknown place_videos mode {place_videos!r}")
-        n_devices = (
-            torch.cuda.device_count() if self.device.type == "cuda" else 1
-        )
-        if place_videos == "round_robin" and n_devices > 1:
-            raise NotImplementedError(
-                "place_videos='round_robin' over more than one device is "
-                "not ported yet (ROADMAP M10)"
+        if place_videos == "round_robin" and mesh is not None:
+            raise ValueError(
+                "--place-videos round_robin and --mesh are mutually "
+                "exclusive (mesh shards one video over all devices)"
             )
         self.place_videos = place_videos
+        self._place_count = 0  # videos placed so far (round-robin cursor)
         # Write-buffer bytes beyond which a session's frame is dropped
         # rather than stalling the pacer.
         self.max_send_backlog = 8 * 1024 * 1024
@@ -1000,7 +1067,9 @@ class FoveaxServer:
         # LRU-bounded: each entry holds a device grid, and the key space
         # is remote-influenced (per-resolution) — unbounded
         # growth would let a client exhaust memory via novel dimensions.
-        self._pipelines: "OrderedDict[tuple[int, int], FoveationPipeline]" = (
+        # Keyed by (width, height, device): a pipeline is bound to its
+        # device, and round_robin places videos on several.
+        self._pipelines: "OrderedDict[tuple, FoveationPipeline]" = (
             OrderedDict()
         )
         self.max_pipelines = 4
@@ -1036,17 +1105,40 @@ class FoveaxServer:
             raise ValueError(f"video escapes video_dir: {name!r}")
         return open_video(p, loop=self.loop_videos)
 
-    def _pipeline_for(self, width: int, height: int) -> FoveationPipeline:
-        key = (width, height)
+    def _pipeline_for(
+        self, width: int, height: int, device: torch.device | None = None
+    ) -> FoveationPipeline:
+        """The pipeline for a source size on ``device`` (default: the
+        server's)."""
+        device = self.device if device is None else device
+        key = (width, height, device)
         if key not in self._pipelines:
             cfg = self.config
             if (width, height) != (cfg.source_width, cfg.source_height):
                 cfg = cfg.with_source(width, height)
-            self._pipelines[key] = FoveationPipeline(cfg, device=self.device)
+            self._pipelines[key] = FoveationPipeline(cfg, device=device)
             while len(self._pipelines) > self.max_pipelines:
                 self._pipelines.popitem(last=False)
         self._pipelines.move_to_end(key)
         return self._pipelines[key]
+
+    def _next_device(self) -> torch.device | None:
+        """Round-robin device for the next video, or None for the server's.
+
+        Placement is assigned per video (channel or session) at open time
+        and stays fixed for its lifetime; the cursor only advances when a
+        device is actually handed out.  Returns None when placement is
+        off, the server runs on the CPU, or a single CUDA device is
+        visible — the server's own device then serves every video.
+        """
+        if self.place_videos != "round_robin" or self.device.type != "cuda":
+            return None
+        n = torch.cuda.device_count()
+        if n <= 1:
+            return None
+        device = torch.device("cuda", self._place_count % n)
+        self._place_count += 1
+        return device
 
     # -- SVD mode ------------------------------------------------------------
 
@@ -1256,7 +1348,10 @@ class FoveaxServer:
         # retry to overwrite (videoRequest errors keep the session alive).
         reader = self._resolve(video)
         try:
-            pipeline = self._pipeline_for(reader.width, reader.height)
+            device = self._next_device()
+            if device is not None:
+                log.info("session video %s placed on %s", video, device)
+            pipeline = self._pipeline_for(reader.width, reader.height, device)
             cfg = pipeline.config
             if self.sat_compression == "svd":
                 mux, wire = self._svd_muxer(cfg), None

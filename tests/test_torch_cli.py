@@ -371,15 +371,40 @@ def test_default_device_is_cuda_without_fallback(tmp_path, capsys, argv):
     assert list(tmp_path.iterdir()) == []
 
 
-def test_serve_mesh_not_ported(capsys):
-    """``serve --mesh`` checks its argument as foveax's does, then the
-    port's server refuses any mesh until sharded serving is ported."""
+def test_serve_mesh_argument_checks(capsys, monkeypatch):
+    """``serve --mesh`` checks its argument as foveax's does: it needs
+    ``--broadcast``, a DATAxSPACE shape and, on the card, as many CUDA
+    devices as the mesh has entries."""
     assert pt_cli.main(["--device", "cpu", "serve", "--mesh", "1x1"]) == 1
     assert "--mesh requires --broadcast" in capsys.readouterr().err
-    assert pt_cli.main(["--device", "cpu", "serve", "--broadcast", "--mesh", "2x1"]) == 1
+    assert pt_cli.main(["--device", "cpu", "serve", "--broadcast", "--mesh", "2y4"]) == 1
+    assert "expected DATAxSPACE" in capsys.readouterr().err
+    # One visible card (nothing is launched: the check comes first).
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert pt_cli.main(["serve", "--broadcast", "--mesh", "2x1"]) == 1
     assert "needs 2 devices, have 1" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt_cli.main(["--device", "cpu", "serve", "--broadcast", "--mesh", "1x1"])
+
+
+def test_serve_mesh_builds_a_mesh_server(monkeypatch):
+    """``serve --broadcast --mesh 2x4 --device cpu`` serves through a 2x4
+    mesh of CPU entries (``run`` is replaced: the test only builds the
+    server the command would serve with)."""
+    from foveax_torch.serve.server import FoveaxServer
+
+    served = []
+
+    async def run(self, port):
+        served.append(self)
+
+    monkeypatch.setattr(FoveaxServer, "run", run)
+    argv = ["--device", "cpu", "serve", "--broadcast", "--mesh", "2x4",
+            "--batch-sampler", "sat"]
+    assert pt_cli.main(argv) == 0
+    (server,) = served
+    assert server.mesh.shape == {"data": 2, "space": 4}
+    assert server.mesh.flat() == [torch.device("cpu")] * 8
+    assert server.batch_sampler == "sat" and server.broadcast
 
 
 def test_serve_and_client_subcommands(tmp_path, capsys):

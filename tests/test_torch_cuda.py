@@ -1,7 +1,8 @@
 """The CUDA kernels of foveax_torch on the card: each wrapper against its
 plain version (tolerance 0, the SAT compared through its int32 view), its
 input checks and its launch count; the SAT pipeline against the fused one;
-the streaming server and client on the card.
+the streaming server and client on the card; the sharded functions and the
+mesh server of chip_smoke.py's phase 9.
 
 These tests need a CUDA device and skip without one.  On the card, run
 
@@ -492,3 +493,50 @@ def test_cli_stage_on_card(pipe, stage):
     assert stages.STAGES[stage - 1](device="cuda")
     chip_smoke.expect_counts(f"stage {stage}", chip_smoke.read_counts(kernels),
                              chip_smoke.STAGE_EXPECTED[stage])
+
+
+def test_mesh_dryrun_on_card(pipe):
+    """``dryrun_multichip(4)`` on the card (chip_smoke.py phase 9): its
+    launches (K5 per space block, frame and device; ``segreduce_xy`` per
+    data shard) and every output equal to the CPU port's."""
+    chip_smoke.mesh_dryrun(chip_smoke.kernel_table(), "cuda")
+
+
+def _card_mesh():
+    from foveax_torch.parallel import make_mesh
+
+    devices, _ = chip_smoke.mesh_devices("cuda")
+    return make_mesh(chip_smoke.MESH_SPACE, chip_smoke.MESH_DATA, devices=devices)
+
+
+def test_mesh_calls_on_card(pipe):
+    """Phase 9's sharded calls at 1920x512 -> 1072x288 over the 2x2 mesh:
+    ``sharded_build_sat``, ``multi_client_step``,
+    ``frame_parallel_roundtrip``, ``sharded_sample_batch_fused`` and both
+    serve pairs, each with its launches (K5 one per space block or frame,
+    ``segreduce_xy`` one per data shard, no unwarp kernel) and equal to
+    the single-device path on the card and to the CPU port."""
+    chip_smoke.mesh_calls(chip_smoke.kernel_table(), CFG, "cuda", _card_mesh())
+
+
+@pytest.mark.parametrize("batch_sampler", ["fused", "sat"])
+def test_mesh_serve_on_card(pipe, batch_sampler):
+    """The broadcast ``FoveaxServer(mesh=...)`` on the card at 1920x512
+    -> 1072x288: every served and restored frame equal to the CPU path;
+    one launch a data shard a served tick (fused) or a space block a tick
+    (SAT)."""
+    if "h264" not in available_wire_codecs():
+        pytest.importorskip("cv2")  # wire_codec="auto" is then jpeg
+    chip_smoke.mesh_serve(chip_smoke.kernel_table(), CFG, "cuda", _card_mesh(),
+                          batch_sampler)
+
+
+def test_round_robin_serve_on_card(pipe):
+    """Two videos on a ``round_robin`` broadcast server on the card: each
+    channel's pipeline on the next visible card (cuda:0 and cuda:1 where
+    two are visible), every frame equal to the CPU path, one fused launch
+    a served tick per channel."""
+    launches, expected, placed = chip_smoke.serve_round_robin(
+        CFG, "cuda", chip_smoke.kernel_table())
+    chip_smoke.expect_counts("round_robin", launches, expected)
+    assert len(placed) == min(2, torch.cuda.device_count())

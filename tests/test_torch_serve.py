@@ -3,8 +3,9 @@ the functional behaviour of the JAX package's serve tests (text replies,
 broadcast, malformed input, the gaze trust boundary, path traversal, the
 channel lifecycle, resolution checks, the pipeline cache, decimation,
 AIMD, the readback guard), the SVD serve mode, the in-memory connection
-pair that chip_smoke.py serves through, the device default, and what is
-not ported yet.  No test here asserts a time."""
+pair that chip_smoke.py serves through, the device default, what is not
+ported, the mesh constructor checks and round-robin placement.  No test
+here asserts a time."""
 
 import asyncio
 import socket
@@ -294,9 +295,9 @@ def test_pipeline_cache_is_bounded():
     server._pipeline_for(112, 64)
     server._pipeline_for(128, 64)
     assert len(server._pipelines) == 2
-    assert (96, 64) not in server._pipelines
+    assert (96, 64, server.device) not in server._pipelines
     p = server._pipeline_for(128, 64)
-    assert p is server._pipelines[(128, 64)]
+    assert p is server._pipelines[(128, 64, server.device)]
     assert p.device == torch.device("cpu")
 
 
@@ -429,22 +430,52 @@ def test_device_default_needs_a_gpu():
         FoveaxClient("ws://127.0.0.1:1", config=CFG)
 
 
-def test_unported_modes_raise(monkeypatch):
+def test_unported_modes_raise():
     # The SVD mode streams the SAT itself: only the SAT batch samplers.
     with pytest.raises(ValueError, match="batch_sampler"):
         _server(sat_compression="svd", batch_sampler="fused")
-    with pytest.raises(NotImplementedError, match="M10"):
-        _server(broadcast=True, mesh=object())
     with pytest.raises(ValueError, match="batch_sampler"):
         _server(batch_sampler="direct")
     with pytest.raises(ValueError):
         _server(place_videos="sideways")
     assert _server(place_videos="round_robin").place_videos == "round_robin"
-    # More than one CUDA device: placement across them waits for M10.
+
+
+def test_mesh_constructor_checks(caplog):
+    """The JAX package's constructor checks of a mesh: its axes, no
+    "direct" sampler over it, round_robin placement excluded, ignored
+    (with a warning) by the SVD mode."""
+    from types import SimpleNamespace
+
+    from foveax_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_space=4, n_data=2, devices=["cpu"] * 8)
+    assert _server(broadcast=True, mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="mesh axes"):
+        _server(broadcast=True, mesh=SimpleNamespace(axis_names=("x", "y")))
+    with pytest.raises(ValueError, match="batch_sampler"):
+        _server(broadcast=True, mesh=mesh, batch_sampler="direct")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        _server(broadcast=True, mesh=mesh, place_videos="round_robin")
+    with caplog.at_level("WARNING", logger="foveax_torch.serve"):
+        _server(broadcast=True, mesh=mesh, sat_compression="svd")
+    assert "--mesh is ignored with --sat-compression svd" in caplog.text
+
+
+def test_next_device_round_robin(monkeypatch):
+    """``place_videos="round_robin"`` hands out the visible CUDA devices
+    in turn (two here, patched: nothing is launched); one device, the CPU
+    or the default placement give None (the server's own device)."""
+    assert _server(place_videos="round_robin")._next_device() is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="M10"):
-        FoveaxServer(CFG, place_videos="round_robin")
+    server = FoveaxServer(CFG, place_videos="round_robin")
+    assert [server._next_device() for _ in range(3)] == [
+        torch.device("cuda", 0), torch.device("cuda", 1), torch.device("cuda", 0)
+    ]
+    assert FoveaxServer(CFG)._next_device() is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert FoveaxServer(CFG, place_videos="round_robin")._next_device() is None
 
 
 def _stall_first_sample(monkeypatch, pair: str):
@@ -454,8 +485,8 @@ def _stall_first_sample(monkeypatch, pair: str):
     state = {"armed": True}
     orig = FoveaxServer._pipeline_for
 
-    def patched(self, w, h):
-        p = orig(self, w, h)
+    def patched(self, *args):
+        p = orig(self, *args)
         if getattr(p, "_stall_wrapped", False):
             return p
         make_pair = getattr(p, pair)
