@@ -64,6 +64,8 @@ Phases, each of which raises on failure (exit code 1):
    equal the CPU pipeline's ``foveate`` of the same source frame at the
    gaze its ``FrameMeta`` echoes, and every restored frame the CPU
    pipeline's ``unwarp_auto`` of the decoded reduced frame (tolerance 0).
+   The broadcast runs a third time with ``batch_sampler="direct"`` (no
+   kernel on the server: ``segreduce_xy`` and K5 +0).
    Prints the clients' receive/decode/unwarp ms, the server's gaze-apply
    median and, timed alone, the client's restore step by step (host copy,
    copy to the card, ``unwarp_auto``, readback), beside the card's name
@@ -98,7 +100,9 @@ Phases, each of which raises on failure (exit code 1):
    encoded file, give equal decoded frames; ``gaze_eval`` prints the same
    lines.  Then on the card only: ``perf --resolutions 1080p 4k --frames 8
    --clients 8`` with the default sampler and with ``--sampler sat``,
-   ``stages`` (``5/5 stages passed``) and ``doctor`` (exit code 0).  Every
+   ``perf --resolutions 1080p --frames 8 --clients 8 --sampler direct
+   --batch-sampler direct``, ``stages`` (``6/6 stages passed``) and
+   ``doctor`` (exit code 0).  Every
    call's launch counts must be :data:`CLI_EXPECTED`'s.  Prints ``perf``'s
    and ``stages``' lines beside the card's name and power limit.
 9. Multi-device serving (``foveax_torch.parallel``) on a 2x2 (data x
@@ -124,6 +128,20 @@ Phases, each of which raises on failure (exit code 1):
    sharded 4K tick of each pair against the single-device ``batch_pair``
    (host clock, synchronised) with the bytes the SAT gather moves, beside
    the card's name and power limit.
+10. The SAT-free direct sampler (``foveax_torch/core/direct.py``, plain
+   PyTorch, no kernel of its own): ``FoveationPipeline(sampler="direct")``
+   over the 32-frame chained path at 1080p and 4K as in phase 3
+   (``unwarp_xy`` +32, every other kernel +0; every reduced frame equal to
+   the fused pipeline's on the same input, the fovea exact, the first frame
+   equal to the CPU port's); ``batch_pair("direct")`` over the 8 gazes of
+   :data:`BATCH_GAZES` at 4K (no launch, equal to the fused batch); at
+   1920x1080 -> 64x36 on a random and an all-255 frame, at four gazes,
+   equal to the SAT path; a call at a fresh gaze and a batch under
+   ``torch.cuda.set_sync_debug_mode("error")``.  Then at 4K ``ms`` and
+   ``ms_queued`` of the three samplers of one function (direct, the fused
+   sampler with its taps, the SAT pair) beside their least-bytes bound,
+   and the direct path's chained fps at 1080p and 4K, beside the card's
+   name and power limit.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -149,6 +167,7 @@ import torch
 
 from foveax_torch import FoveaxClient, FoveaxConfig, FoveaxServer, FoveationPipeline
 from foveax_torch.cli import main as cli
+from foveax_torch.core import direct as core_direct
 from foveax_torch.core import gnomonic, logpolar, metrics
 from foveax_torch.core import sample as core_sample
 from foveax_torch.core.logrect import make_point_grid
@@ -189,6 +208,7 @@ ODD_SHAPE = (1000, 500, 560, 288)
 PATH_KERNELS = {
     "fused": ("segreduce_xy", "unwarp_xy"),
     "sat": ("sat_build", "unwarp_xy"),
+    "direct": ("unwarp_xy",),
 }
 # How long the card is kept busy before a queued timing's start event.
 SPIN_MS = 0.2
@@ -541,19 +561,21 @@ def expect_counts(what: str, launches: dict[str, int], expected: dict[str, int])
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
-def phase_main_path(kernels, sampler: str, shape: str = "4k") -> dict[str, int]:
+def phase_main_path(kernels, sampler: str, shape: str = "4k",
+                    device: str = "cuda") -> dict[str, int]:
     """One path over the 32-frame trace, its launch counts read around
-    it.  For the SAT path every reduced frame is then held to the fused
-    pipeline's on the same input."""
-    pipe = make_pipeline(shape, "cuda", sampler)
+    it.  For the SAT and direct paths every reduced frame is then held to
+    the fused pipeline's on the same input."""
+    pipe = make_pipeline(shape, device, sampler)
     frame = make_frame(pipe, SEED + 1)
     gazes = gaze_trace(N_FRAMES)
-    centers = [torch.from_numpy(g).to("cuda") for g in gazes]
-    zero_counts(kernels)
+    centers = [torch.from_numpy(g).to(device) for g in gazes]
+    if kernels:
+        zero_counts(kernels)
     last, fovea_ok, kept = run_main_path(
-        pipe, frame, gazes, centers, keep=sampler == "sat"
+        pipe, frame, gazes, centers, keep=sampler != "fused"
     )
-    launches = read_counts(kernels)
+    launches = read_counts(kernels) if kernels else {}
     hr, wr, _ = pipe.reduced_shape
     h, w, _ = pipe.source_shape
     if last.shape != (3, h, w) or last.dtype != torch.uint8:
@@ -563,14 +585,15 @@ def phase_main_path(kernels, sampler: str, shape: str = "4k") -> dict[str, int]:
         raise AssertionError(
             f"{sampler} path: fovea not round-tripped exactly at frames {bad}"
         )
-    expect_counts(f"{sampler} path", launches,
-                  {name: N_FRAMES for name in PATH_KERNELS[sampler]})
+    if kernels:
+        expect_counts(f"{sampler} path", launches,
+                      {name: N_FRAMES for name in PATH_KERNELS[sampler]})
 
     if kept:
-        fused = make_pipeline(shape, "cuda", "fused")
+        fused = make_pipeline(shape, device, "fused")
         for i, ((x, reduced), c) in enumerate(zip(kept, centers)):
             if not torch.equal(fused.foveate_chw(x, c), reduced):
-                raise AssertionError(f"SAT path frame {i} differs from the fused path")
+                raise AssertionError(f"{sampler} path frame {i} differs from the fused path")
         del kept
 
     # The first frame against the CPU pipeline (plain versions throughout).
@@ -586,7 +609,7 @@ def phase_main_path(kernels, sampler: str, shape: str = "4k") -> dict[str, int]:
                             ("restored", got_out, want_out)):
         if not torch.equal(got.cpu(), want):
             raise AssertionError(f"{sampler} {shape} {what} frame differs from the CPU path")
-    same = ", each reduced frame equal to the fused path's" if sampler == "sat" else ""
+    same = ", each reduced frame equal to the fused path's" if sampler != "fused" else ""
     print(f"main path {sampler} {shape}: {N_FRAMES} chained frames, launches "
           f"{launches}, fovea exact on every frame{same}, first frame equal "
           "to the CPU path", flush=True)
@@ -1034,14 +1057,17 @@ def serve_expected(batch_sampler, clients, mesh=None) -> dict[str, int]:
     """The launches a serve run must show: ``batch_sampler`` None for a
     session (the fused sampler once per frame), else the broadcast
     channel's (one fused launch per served tick, or one K5 launch per tick
-    read; over a mesh, one per data shard, or one per space block);
-    ``unwarp_xy`` once per frame the clients restored."""
+    read; over a mesh, one per data shard, or one per space block; none
+    for the direct sampler); ``unwarp_xy`` once per frame the clients
+    restored."""
     frames = sum(c.stats.frames for c in clients)
     n_data, n_space = (mesh.shape["data"], mesh.shape["space"]) if mesh else (1, 1)
     if batch_sampler is None:
         return {"segreduce_xy": frames, "unwarp_xy": frames}
     if batch_sampler == "fused":
         return {"segreduce_xy": n_data * served_ticks(clients), "unwarp_xy": frames}
+    if batch_sampler == "direct":
+        return {"unwarp_xy": frames}
     return {"sat_build": n_space * BROADCAST_TICKS, "unwarp_xy": frames}
 
 
@@ -1109,7 +1135,7 @@ def phase_serve(kernels) -> None:
           flush=True)
     print(f"serve client unwarp alone (no server running): "
           f"{time_client_unwarp(cfg, client)}", flush=True)
-    for batch_sampler in ("fused", "sat"):
+    for batch_sampler in ("fused", "sat", "direct"):
         server, clients, launches = serve_broadcast(cfg, None, batch_sampler, kernels)
         expect_counts(f"serve broadcast {batch_sampler}", launches,
                       serve_expected(batch_sampler, clients))
@@ -1400,8 +1426,8 @@ def phase_math(device: str = "cuda", cfg=None, viewport=VIEWPORT) -> dict:
 # with ``--clients 8``, 8 + 6 batch steps (fused: one segreduce_xy for the
 # 8 gazes); ``stages``: stage 1 one foveate, stage 2 one SAT build, stage 3
 # 30 served and restored frames, stage 4 26 SAT-path steps, stage 5 61
-# one-SAT batches and 8 single foveates; ``doctor`` builds and launches K5
-# once.
+# one-SAT batches and 8 single foveates, stage 6 one SAT build (the direct
+# sampler launches no kernel); ``doctor`` builds and launches K5 once.
 CLI_SOURCE = "synthetic://1920x1080@30/{}"
 CLI_FRAMES = 4
 PERF_STEPS = 2 * (8 + 6)  # two resolutions, chain(2) twice and chain(8 + 2)
@@ -1411,7 +1437,10 @@ STAGE_EXPECTED = {
     3: {"segreduce_xy": 30, "unwarp_xy": 30},
     4: {"sat_build": 26, "unwarp_xy": 26},
     5: {"sat_build": 61, "segreduce_xy": 8},
+    6: {"sat_build": 1},
 }
+PERF_DIRECT = ["perf", "--resolutions", "1080p", "--frames", "8", "--clients",
+               "8", "--sampler", "direct", "--batch-sampler", "direct"]
 CLI_EXPECTED = {
     "single_frame logrect": {"segreduce_xy": 1},
     "single_frame logrect_point": {},
@@ -1423,6 +1452,7 @@ CLI_EXPECTED = {
     "perf": {"segreduce_xy": 2 * PERF_STEPS, "unwarp_xy": PERF_STEPS},
     "perf --sampler sat": {"sat_build": PERF_STEPS, "unwarp_xy": PERF_STEPS,
                            "segreduce_xy": PERF_STEPS},
+    "perf --sampler direct": {"unwarp_xy": PERF_STEPS // 2},
     "stages": {name: sum(e.get(name, 0) for e in STAGE_EXPECTED.values())
                for name in ("segreduce_xy", "unwarp_xy", "sat_build")},
     "doctor": {"sat_build": 1},
@@ -1519,9 +1549,11 @@ def phase_cli(kernels) -> dict:
     report["perf"] = cli_card(kernels, "perf", perf).splitlines()
     report["perf --sampler sat"] = cli_card(
         kernels, "perf --sampler sat", perf + ["--sampler", "sat"]).splitlines()
+    report["perf --sampler direct"] = cli_card(
+        kernels, "perf --sampler direct", PERF_DIRECT).splitlines()
     stages = cli_card(kernels, "stages", ["stages"])
     report["stages"] = stages.splitlines()
-    if "5/5 stages passed" not in stages:
+    if "6/6 stages passed" not in stages:
         raise AssertionError(f"cli stages:\n{stages}")
     report["doctor"] = [l for l in cli_card(kernels, "doctor", ["doctor"]).splitlines()
                         if l.startswith(("device:", "kernels:"))]
@@ -1777,6 +1809,161 @@ def phase_mesh(kernels, cfg=None, serve_cfg=None, device: str = "cuda") -> dict:
     return report
 
 
+# Phase 10: the direct sampler.  F2's shape and gazes: 1920x1080 -> 64x36,
+# where the JAX package's direct sampler misses (ROADMAP Queue 3, F2).
+F2_CONFIG = dict(source_width=1920, source_height=1080, reduced_width=64,
+                 reduced_height=36)
+F2_GAZES = [(0.5, 0.5), (0.0, 0.0), (1.0, 1.0), (0.98, 0.03)]
+FRESH_GAZE = (0.3141, 0.2718)
+# The queued readings' busy wait in phase 10 (longer than the direct
+# sampler's host dispatch).
+DIRECT_SPIN_MS = 3.0
+
+
+def direct_batch_pair(kernels, device: str) -> dict[str, int]:
+    """``batch_pair("direct")`` at 4K over :data:`BATCH_GAZES`: no kernel
+    launched, the batch equal to the fused pair's."""
+    pipe = make_pipeline("4k", device, "direct")
+    frame = make_frame(pipe, SEED + 4).permute(1, 2, 0).contiguous()
+    centers = torch.tensor(BATCH_GAZES, dtype=torch.float32, device=device)
+    prepare, sample_batch = pipe.batch_pair("direct")
+    if kernels:
+        zero_counts(kernels)
+    got = sample_batch(prepare(frame), centers)
+    launches = read_counts(kernels) if kernels else {}
+    if kernels:
+        expect_counts("direct batch pair", launches, {})
+    if not torch.equal(got, pipe.sample_batch_fused(frame, centers)):
+        raise AssertionError("direct batch pair differs from the fused batch")
+    return launches
+
+
+def direct_f2(device: str) -> None:
+    """At F2's shape, on a random and an all-255 frame, the direct
+    pipeline equals the SAT pipeline on the same device."""
+    cfg = FoveaxConfig(**F2_CONFIG)
+    direct = FoveationPipeline(cfg, sampler="direct", device=device)
+    sat = FoveationPipeline(cfg, sampler="sat", device=device)
+    for fill in (None, 255):
+        frame = sat_frame(1920, 1080, fill, device)
+        for g in F2_GAZES:
+            c = direct.center(*g)
+            if not torch.equal(direct.foveate_chw(frame, c), sat.foveate_chw(frame, c)):
+                raise AssertionError(f"direct at 1920x1080 -> 64x36, gaze {g}, "
+                                     f"fill {fill}: differs from the SAT path")
+
+
+def direct_no_sync() -> None:
+    """A direct call, single and batched, at a fresh gaze under
+    ``torch.cuda.set_sync_debug_mode("error")``: the gaze never reaches the
+    host."""
+    pipe = make_pipeline("4k", "cuda", "direct")
+    frame = make_frame(pipe, SEED + 5)
+    c = torch.tensor(FRESH_GAZE, dtype=torch.float32, device="cuda")
+    cs = torch.tensor(BATCH_GAZES, dtype=torch.float32, device="cuda")
+    hwc = frame.permute(1, 2, 0)
+    pipe.foveate_chw(frame, pipe.center(0.5, 0.5))  # indices built once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.foveate_chw(frame, c)
+        pipe.sample_batch_direct(hwc, cs * 0.5 + 0.25)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def direct_timing(shape: str = "4k") -> list[dict]:
+    """The three samplers of one function at ``shape``, each from the
+    frame to the reduced frame (``ms`` and ``ms_queued`` as phase 4, median
+    of 50, L2 flushed, but the card kept busy for ``DIRECT_SPIN_MS``: the
+    direct sampler's host dispatch outlasts phase 4's 0.2 ms): the direct
+    sampler (plain PyTorch), the fused sampler (its taps, then
+    ``segreduce_xy``) and the SAT pair (K5, then the plain 4-tap sampler).
+    The bound is the least bytes: the uint8 frame read once, the uint8
+    reduced frame written once."""
+    pipe = make_pipeline(shape, "cuda", "direct")
+    frame = make_frame(pipe, SEED + 2)
+    c = torch.tensor(GAZES[0], dtype=torch.float32, device="cuda")
+    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")  # 128 MiB
+    spin = spin_cycles(DIRECT_SPIN_MS)
+    grid = pipe.grid
+    samplers = {
+        "sample_rect_direct": lambda f, c: core_direct.sample_rect_direct(
+            f, grid, c, out_layout="chw"),
+        "sample_rect_fused": lambda f, c: sr.sample_rect_fused(
+            f, grid, c, out_layout="chw"),
+        "sat pair": lambda f, c: core_sample.sample_rect_from_sat(
+            build_sat(f, in_layout="chw"), grid, c, out_layout="chw"),
+    }
+    hr, wr, _ = pipe.reduced_shape
+    nbytes = frame.numel() + 3 * hr * wr
+    rows = []
+    for name, fn in samplers.items():
+        row = {
+            "name": name,
+            "ms": time_cuda(fn, (frame, c), 50, flush),
+            "ms_queued": time_cuda(fn, (frame, c), 50, flush, spin),
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "bytes": nbytes,
+        }
+        print(f"direct timing {shape}: {json.dumps(row)}", flush=True)
+        rows.append(row)
+    direct_profile(samplers["sample_rect_direct"], frame, c, shape)
+    return rows
+
+
+def direct_profile(fn, frame, c, shape: str, reps: int = 10) -> None:
+    """``torch.profiler`` over ``reps`` calls of the direct sampler: its
+    kernels per call, their device ms in all, and the six that take the
+    most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(frame, c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(frame, c)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    top = [(e.key[:70], e.count // reps, e.self_device_time_total / reps / 1e3)
+           for e in kernels[:6]]
+    print(f"direct profile {shape}: {sum(e.count for e in kernels) // reps} "
+          f"kernels, {total:.4f} device ms per call; top (name, launches, ms) "
+          f"{json.dumps(top)}", flush=True)
+
+
+def phase_direct(kernels, device: str = "cuda") -> dict:
+    """The SAT-free direct sampler (module docstring, phase 10); with
+    ``kernels`` None no launch is counted, and off the card nothing is
+    timed."""
+    t0 = time.perf_counter()
+    report = {}
+    for shape in SHAPES:
+        report[f"path {shape}"] = phase_main_path(kernels, "direct", shape, device)
+    report["batch pair"] = direct_batch_pair(kernels, device)
+    print(f"direct batch pair 4k: {len(BATCH_GAZES)} gazes, launches "
+          f"{report['batch pair']}, equal to the fused batch", flush=True)
+    direct_f2(device)
+    print(f"direct 1920x1080 -> 64x36: gazes {F2_GAZES}, random and all-255 "
+          "frames, equal to the SAT path", flush=True)
+    if device == "cuda":
+        direct_no_sync()
+        print(f"direct at gaze {FRESH_GAZE} and a batch of "
+              f"{len(BATCH_GAZES)} under sync debug mode 'error': no sync",
+              flush=True)
+        card = card_line()
+        report["timing"] = direct_timing()
+        report["fps"] = {shape: phase_path_fps(shape, "direct") for shape in SHAPES}
+        print(f"direct card: {card}", flush=True)
+    print(f"direct phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return report
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1812,13 +1999,14 @@ def main() -> int:
     }
     timing = {row["name"]: row for row in phase_timing()}
     for shape in SHAPES:
-        for sampler in PATH_KERNELS:
+        for sampler in ("fused", "sat"):
             phase_path_fps(shape, sampler)
     phase_serve(kernels)
     phase_svd(kernels)
     phase_math()
     phase_cli(kernels)
     phase_mesh(kernels)
+    phase_direct(kernels)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {

@@ -12,9 +12,8 @@ Everything runs on the card unless ``--device cpu`` is given (the global
 option that takes the place of foveax's ``--platform``); without a GPU the
 default exits non-zero with :func:`~foveax_torch.device.resolve_device`'s
 message.  The kernels run where the tensors are: on the card the CUDA
-kernels, on the CPU their plain versions.  The JAX package's ``direct``
-sampler is a TPU workaround the port does not carry: asking for it is
-refused.
+kernels, on the CPU their plain versions (the ``direct`` sampler is plain
+PyTorch on both).
 """
 
 from __future__ import annotations
@@ -32,12 +31,6 @@ import torch
 
 from foveax_torch.device import resolve_device
 from foveax_torch.pipeline.runner import upload
-
-DIRECT_REFUSED = (
-    "the 'direct' sampler is not ported (a TPU workaround; its outputs are "
-    "bit-identical to 'sat' and 'fused'): use 'auto', 'sat' or 'fused'"
-)
-
 
 def _center(arg: str):
     x, y = arg.split(",")
@@ -89,9 +82,6 @@ def cmd_serve(args) -> int:
     from foveax_torch.config import FoveaxConfig
     from foveax_torch.serve.server import FoveaxServer
 
-    if args.batch_sampler == "direct":
-        print(DIRECT_REFUSED, file=sys.stderr)
-        return 2
     logging.basicConfig(level=logging.INFO)
     cfg = FoveaxConfig(fps=args.fps)
     mesh = None
@@ -1044,6 +1034,10 @@ def cmd_perf(args) -> int:
     --clients N, also measures the batched multi-gaze serve step (N
     sampled gaze streams from one frame)."""
     from foveax_torch.config import reduced_dim
+    from foveax_torch.core.direct import (
+        sample_rect_direct,
+        sample_rect_direct_batch,
+    )
     from foveax_torch.core.logrect import make_grid
     from foveax_torch.core.sample import sample_rect_from_sat
     from foveax_torch.core.sat import build_sat
@@ -1054,9 +1048,6 @@ def cmd_perf(args) -> int:
         sample_rect_fused_batch,
     )
 
-    if args.sampler == "direct" or args.batch_sampler == "direct":
-        print(DIRECT_REFUSED, file=sys.stderr)
-        return 2
     dev = args.device
     # The JAX package's gather workarounds "fast" and "mm" are the port's
     # "auto": the fused unwarp kernel where its contract holds.
@@ -1070,7 +1061,8 @@ def cmd_perf(args) -> int:
 
         # Single-gaze sampler: the fused segment-reduce kernel where the
         # shape is inside its contract ("auto"), else the SAT pair (K5,
-        # then the 4-tap sampler).
+        # then the 4-tap sampler); "direct" the SAT-free banded sampler.
+        use_direct = args.sampler == "direct"
         eligible = fused_eligible(grid)
         use_fused = args.sampler == "fused" or (
             args.sampler == "auto" and eligible
@@ -1083,9 +1075,12 @@ def cmd_perf(args) -> int:
             )
             return 1
 
-        def step(f, c, grid=grid, w=w, h=h, use_fused=use_fused):
+        def step(f, c, grid=grid, w=w, h=h, use_fused=use_fused,
+                 use_direct=use_direct):
             if use_fused:
                 red = sample_rect_fused(f, grid, c, out_layout="chw")
+            elif use_direct:
+                red = sample_rect_direct(f, grid, c, out_layout="chw")
             else:
                 red = sample_rect_from_sat(
                     build_sat(f, in_layout="chw"), grid, c, out_layout="chw"
@@ -1134,7 +1129,14 @@ def cmd_perf(args) -> int:
             if n_c <= 0:  # "--clients 0" stays a documented no-op
                 continue
 
-            if batch_kind == "fused":
+            if batch_kind == "direct":
+
+                def batch_step(f, cs, grid=grid):
+                    return sample_rect_direct_batch(
+                        f, grid, cs, in_layout="chw", out_layout="chw"
+                    )
+
+            elif batch_kind == "fused":
 
                 def batch_step(f, cs, grid=grid):
                     return sample_rect_fused_batch(
@@ -1293,9 +1295,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["auto", "sat", "direct", "fused"],
         help="broadcast-tick sampling strategy: sat = amortize one SAT "
         "across the member batch; fused = SAT-free per-gaze sampling, one "
-        "launch for the batch (bit-identical; auto = fused where the shape "
-        "is inside the fused sampler's contract, sat otherwise); direct is "
-        "not ported and refused",
+        "launch for the batch; direct = SAT-free banded sampling in plain "
+        "PyTorch, no kernel (bit-identical; auto = fused where the shape "
+        "is inside the fused sampler's contract, sat otherwise)",
     )
     p.add_argument(
         "--readback-deadline", type=float, default=120.0,
@@ -1445,9 +1447,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["auto", "sat", "direct", "fused"],
         default="auto",
         help="single-gaze downsampler: SAT 4-tap (K5, then the 4-tap "
-        "sampler) or the fused segment-reduce kernel (auto = fused where "
-        "the shape is inside its contract, sat otherwise); direct is not "
-        "ported and refused",
+        "sampler), the SAT-free banded direct sampler (plain PyTorch) or "
+        "the fused segment-reduce kernel (auto = fused where the shape is "
+        "inside its contract, sat otherwise)",
     )
     p.add_argument(
         "--resolutions", nargs="*", choices=["1080p", "4k", "8k", "16k"], default=None
@@ -1472,10 +1474,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--batch-sampler", choices=["auto", "sat", "direct", "fused"],
         default="auto",
         help="--clients batch path: sat = one SAT amortized across the "
-        "batch; fused = SAT-free sampling of the whole batch in one launch "
-        "(bit-identical outputs); auto = fused where the shape is inside "
-        "the fused sampler's contract, sat otherwise; direct is not ported "
-        "and refused",
+        "batch; fused = SAT-free sampling of the whole batch in one launch; "
+        "direct = SAT-free banded sampling, no kernel (bit-identical "
+        "outputs); auto = fused where the shape is inside the fused "
+        "sampler's contract, sat otherwise",
     )
     p.set_defaults(fn=cmd_perf)
 

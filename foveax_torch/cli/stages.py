@@ -8,10 +8,8 @@ port (counterpart of ``foveax/cli/stages.py``).
   4. 4K full path: SAT -> sample -> unwarp -> gnomonic viewport
      (>= 60 fps target on the card)
   5. 8 concurrent gaze streams sampled from one SAT on 4K frames
-
-The JAX package's sixth stage holds its ``direct`` sampler against the SAT
-path; that sampler is a TPU workaround the port does not carry, so the
-port runs five stages and says so.
+  6. the SAT-free direct sampler equal to the SAT path at 4K, on the
+     device
 
 Run: ``python -m foveax_torch.cli.main stages`` (``--device cpu`` for the
 plain versions).  Prints one PASS/FAIL line per stage plus the measured
@@ -28,12 +26,6 @@ import numpy as np
 import torch
 
 from foveax_torch.device import resolve_device
-
-STAGE6_NOTE = (
-    "stage6 (direct sampler == SAT path) not run: the 'direct' sampler is "
-    "a TPU workaround the port does not carry"
-)
-
 
 def _result(name: str, ok: bool, detail: str, *, partial: bool = False) -> bool:
     """``partial`` marks a pass whose perf claim could not be measured in
@@ -242,18 +234,47 @@ def stage5_batched_clients(n_clients: int = 8, device=None) -> bool:
     return _result("stage5 8-gaze batched launch", ok, detail, partial=True)
 
 
+def stage6_direct_sampler(device=None) -> bool:
+    """SAT-free direct sampler: bit-equality with the SAT path (K5, then
+    the 4-tap sampler) on the device at 4K, two gazes."""
+    from foveax_torch.config import reduced_dim
+    from foveax_torch.core.direct import sample_rect_direct
+    from foveax_torch.core.logrect import make_grid
+    from foveax_torch.core.sample import sample_rect_from_sat
+    from foveax_torch.core.sat import build_sat
+
+    dev = resolve_device(device)
+    w, h = 3840, 2160
+    grid = make_grid(reduced_dim(w), reduced_dim(h), w, h, dev)
+    frame = _frame(6, (3, h, w), dev)
+    sat = build_sat(frame, in_layout="chw")
+    ok = True
+    for cxy in [(0.5, 0.5), (0.97, 0.06)]:
+        c = torch.tensor(cxy, dtype=torch.float32, device=dev)
+        a = sample_rect_from_sat(sat, grid, c, out_layout="chw")
+        b = sample_rect_direct(frame, grid, c, out_layout="chw")
+        if not torch.equal(a, b):
+            ok = False
+            break
+    return _result(
+        "stage6 direct sampler == SAT path (4K, on device)",
+        ok,
+        "bit-identical" if ok else "MISMATCH",
+    )
+
+
 STAGES = (
     stage1_single_frame_warp,
     stage2_sat_roundtrip,
     stage3_streaming_dynamic_gaze,
     stage4_4k_full_path,
     stage5_batched_clients,
+    stage6_direct_sampler,
 )
 
 
 def run_all(device=None) -> int:
     dev = resolve_device(device)
     results = [stage(device=dev) for stage in STAGES]
-    print(STAGE6_NOTE)
     print(f"{sum(results)}/{len(results)} stages passed")
     return 0 if all(results) else 1

@@ -1,10 +1,12 @@
 """Transform math on tensors: the grid, the sampler taps, the inverse map
 and the exact unwarp; the CLI-only samplers, log-polar, gnomonic, the
 quality metrics and the SVD-compressed SAT.  Exports what the JAX
-package's ``foveax.core`` exports, apart from its ``sample_rect_direct``
-(a TPU workaround, not ported) and ``delta_1d`` (a traced float32 delta;
-the port computes deltas on the host in float64, :func:`delta64`)."""
+package's ``foveax.core`` exports, apart from its ``delta_1d`` (a traced
+float32 delta; the port computes deltas on the host in float64,
+:func:`delta64`); ``sample_rect_direct`` is importable from here but not
+in ``__all__``, as in the JAX package."""
 
+from foveax_torch.core.direct import sample_rect_direct
 from foveax_torch.core.gnomonic import gnomonic_project
 from foveax_torch.core.logpolar import (
     LogPolarGrid,

@@ -95,6 +95,8 @@ class LogRectGrid:
     (out_width,) and (out_height,).)
     ``max_dy``: the largest row step of ``gy``, kept on the host so that
     the sampler can check its 16-bit row-sum bound without a device read.
+    ``gx_host``/``gy_host``: the vectors' int64 bytes, kept on the host so
+    that the direct sampler splits its bands without a device read.
     """
 
     gx: torch.Tensor
@@ -104,6 +106,8 @@ class LogRectGrid:
     source_width: int
     source_height: int
     max_dy: int
+    gx_host: bytes
+    gy_host: bytes
 
     @property
     def device(self) -> torch.device:
@@ -139,6 +143,8 @@ def grid_from_numpy(
         source_width=source_width,
         source_height=source_height,
         max_dy=int(np.diff(gy.astype(np.int64)).max(initial=0)),
+        gx_host=gx.astype(np.int64).tobytes(),
+        gy_host=gy.astype(np.int64).tobytes(),
     )
 
 
@@ -183,6 +189,8 @@ def _make_point_grid_cached(
         source_width=source_width,
         source_height=source_height,
         max_dy=int(np.diff(gy.astype(np.int64)).max(initial=0)),
+        gx_host=gx.astype(np.int64).tobytes(),
+        gy_host=gy.astype(np.int64).tobytes(),
     )
 
 

@@ -38,6 +38,24 @@ def _exact_box_div(box: torch.Tensor, rect: torch.Tensor) -> torch.Tensor:
     return torch.div(box, rect, rounding_mode="floor")
 
 
+def longest_run(mask) -> tuple[int, int]:
+    """[start, end) of the longest contiguous True run in a bool array
+    (the first of equal length); (0, 0) when none is True.  The direct
+    sampler's band split (:mod:`foveax_torch.core.direct`) uses it."""
+    best = (0, 0)
+    start = None
+    n = len(mask)
+    for j in range(n + 1):
+        if j < n and mask[j]:
+            if start is None:
+                start = j
+        else:
+            if start is not None and j - start > best[1] - best[0]:
+                best = (start, j)
+            start = None
+    return best
+
+
 def _axis_taps(g: torch.Tensor, c: torch.Tensor, dim: int, *, wrap: bool):
     """Per-axis tap vectors for one axis of the 4-tap box filter.
 

@@ -23,8 +23,10 @@ def entry(device: str | torch.device | None = None):
     """``(fn, example_args)``: the foveated-streaming device step at the
     reference's flagship 1920x1080 -> 1072x608 — the fused sampler
     (``segreduce_xy`` on the card) on an (H, W, 3) frame, then the exact
-    unwarp, as the JAX package's entry restores.  On ``cuda`` unless
-    ``device="cpu"``."""
+    unwarp, as the JAX package's entry restores.  The JAX package's entry
+    samples with its direct sampler; this one keeps the fused sampler, the
+    kernel the card's hot path runs, whose output is bit-identical to it.
+    On ``cuda`` unless ``device="cpu"``."""
     dev = resolve_device(device)
     cfg = FoveaxConfig()
     grid = make_grid(

@@ -11,19 +11,22 @@
     roundtrip(frame, center)          foveate + exact unwarp
     foveate_batch(frame, centers)     one SAT, N gazes
     sample_batch_fused(frame, cs)     one frame, N gazes, one launch per pass
+    sample_batch_direct(frame, cs)    one frame, N gazes, no SAT, no kernel
 
 The ``_chw`` variants take and return channel-planar (3, H, W) frames, the
 layout of the device-resident hot path.  Gaze centres are runtime tensors:
 a moving gaze rebuilds nothing.
 
 Samplers: "fused" (the one-launch segment-reduce kernel, no SAT), "sat"
-(SAT build K5, then the 4-tap sampler) or "auto": fused where the shape is
-inside the fused sampler's contract, SAT otherwise, on every device.  The
-two are bit-identical.  An explicit "fused" on a shape outside the
-contract raises: the port refuses it through its uint16 row-sum bound
-(:func:`fused_eligible`).  The JAX package's probe checks only its Pallas
-structure and admits some such shapes (1920x1080 -> 64x36), where its
-fused sampler wraps its uint16 row sums.
+(SAT build K5, then the 4-tap sampler), "direct" (the banded SAT-free
+sampler of :mod:`foveax_torch.core.direct`, plain PyTorch, exact at every
+shape) or "auto": fused where the shape is inside the fused sampler's
+contract, SAT otherwise, on every device (never direct, as in the JAX
+package).  All three are bit-identical.  An explicit "fused" on a shape
+outside the contract raises: the port refuses it through its uint16
+row-sum bound (:func:`fused_eligible`).  The JAX package's probe checks
+only its Pallas structure and admits some such shapes (1920x1080 ->
+64x36), where its fused sampler wraps its uint16 row sums.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from foveax_torch.config import FoveaxConfig
+from foveax_torch.core.direct import sample_rect_direct, sample_rect_direct_batch
 from foveax_torch.core.logrect import LogRectGrid, make_grid
 from foveax_torch.core.sample import sample_rect_from_sat
 from foveax_torch.core.sat import build_sat
@@ -42,7 +46,7 @@ from foveax_torch.kernels.segreduce import (
     sample_rect_fused_batch,
 )
 
-SAMPLERS = ("sat", "fused")
+SAMPLERS = ("sat", "fused", "direct")
 
 
 def _identity(frame: torch.Tensor) -> torch.Tensor:
@@ -54,8 +58,8 @@ def _identity(frame: torch.Tensor) -> torch.Tensor:
 def _check_sampler(sampler: str) -> None:
     if sampler not in (*SAMPLERS, "auto"):
         raise ValueError(
-            f"sampler {sampler!r}: the ported samplers are 'sat' and "
-            "'fused' (or 'auto')"
+            f"sampler {sampler!r}: expected one of {', '.join(SAMPLERS)} "
+            "or 'auto'"
         )
 
 
@@ -63,7 +67,8 @@ class FoveationPipeline:
     """Pipeline for one (source, reduced) shape configuration on one
     device (``cuda`` unless ``device="cpu"`` is passed).  Stateless apart
     from the grid: one instance serves any number of connections.
-    ``self.sampler`` holds the resolved sampler, "fused" or "sat"."""
+    ``self.sampler`` holds the resolved sampler, "fused", "sat" or
+    "direct"."""
 
     def __init__(
         self,
@@ -112,6 +117,10 @@ class FoveationPipeline:
     def foveate(self, frame, center):
         if self.sampler == "sat":
             return self.sample(build_sat(frame), center)
+        if self.sampler == "direct":
+            return sample_rect_direct(
+                frame, self.grid, center, wrap_x=self.wrap_x, in_layout="hwc"
+            )
         return sample_rect_fused(
             frame, self.grid, center, wrap_x=self.wrap_x, in_layout="hwc"
         )
@@ -119,6 +128,10 @@ class FoveationPipeline:
     def foveate_chw(self, frame, center):
         if self.sampler == "sat":
             return self.sample_chw(build_sat(frame, in_layout="chw"), center)
+        if self.sampler == "direct":
+            return sample_rect_direct(
+                frame, self.grid, center, wrap_x=self.wrap_x, out_layout="chw"
+            )
         return sample_rect_fused(
             frame, self.grid, center, wrap_x=self.wrap_x, out_layout="chw"
         )
@@ -183,25 +196,33 @@ class FoveationPipeline:
             frame, self.grid, centers, wrap_x=self.wrap_x, in_layout="hwc"
         )
 
+    def sample_batch_direct(self, frame, centers):
+        """(H, W, 3) frame + (N, 2) centres -> (N, Hr, Wr, 3), no SAT."""
+        return sample_rect_direct_batch(
+            frame, self.grid, centers, wrap_x=self.wrap_x, in_layout="hwc"
+        )
+
     def batch_pair(self, batch_sampler: str = "auto"):
         """The serve tick's device pair ``(prepare, sample_batch)``:
         ``prepare(frame_hwc)`` once per source frame,
         ``sample_batch(prepared, centers)`` once per member batch.  "sat"
-        builds one SAT per frame for the whole batch; "fused" needs no
-        prepare stage; "auto" is fused where the shape is eligible and
-        "sat" otherwise."""
+        builds one SAT per frame for the whole batch; "fused" and "direct"
+        need no prepare stage; "auto" is fused where the shape is eligible
+        and "sat" otherwise."""
         _check_sampler(batch_sampler)
         if batch_sampler == "auto":
             batch_sampler = "fused" if self.fused_ok else "sat"
         if batch_sampler == "sat":
             return self.build_sat, self.sample_batch
+        if batch_sampler == "direct":
+            return _identity, self.sample_batch_direct
         return _identity, self.sample_batch_fused
 
     def single_pair(self):
         """(prepare, sample) for the single-session serve loop: the SAT
         pair when the resolved sampler is "sat" (prepare the SAT eagerly,
-        sample at the gaze-late tick), else (stage, foveate): the fused
-        sampler has no gaze-independent prepare stage."""
+        sample at the gaze-late tick), else (stage, foveate): the fused and
+        direct samplers have no gaze-independent prepare stage."""
         if self.sampler == "sat":
             return self.build_sat, self.sample
         return _identity, self.foveate

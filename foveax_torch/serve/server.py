@@ -991,16 +991,12 @@ class FoveaxServer:
         # Broadcast-tick sampling strategy: "sat" amortizes one SAT build
         # (kernel K5) per tick across the member batch, then samples each
         # gaze with the 4-tap sampler; "fused" skips the SAT and samples
-        # the whole batch in one segreduce_xy launch.  "auto" resolves in
-        # FoveationPipeline.batch_pair: fused where the shape is inside
-        # the fused sampler's contract, "sat" otherwise.  The JAX
-        # package's "direct" sampler is a TPU workaround the port does not
-        # carry (ROADMAP "Not to port").
-        if batch_sampler not in ("auto", "sat", "fused"):
-            raise ValueError(
-                f"unknown batch_sampler {batch_sampler!r} (the port "
-                "serves 'auto', 'sat' and 'fused')"
-            )
+        # the whole batch in one segreduce_xy launch; "direct" skips the
+        # SAT and every kernel (core/direct.py, plain PyTorch).  "auto"
+        # resolves in FoveationPipeline.batch_pair: fused where the shape
+        # is inside the fused sampler's contract, "sat" otherwise.
+        if batch_sampler not in ("auto", "sat", "direct", "fused"):
+            raise ValueError(f"unknown batch_sampler {batch_sampler!r}")
         if batch_sampler not in ("auto", "sat") and sat_compression == "svd":
             raise ValueError(
                 "sat_compression='svd' streams the SAT itself; "
@@ -1010,14 +1006,20 @@ class FoveaxServer:
         # Optional foveax_torch.parallel Mesh over ("data", "space"):
         # broadcast channels split the SAT scan over `space` rows and the
         # client batch over `data` (foveax_torch/parallel/sharded.py).
-        # None = the single-device pipeline.  There is no sharded "direct"
-        # sampler; the port refuses "direct" above in any case.
+        # None = the single-device pipeline.
         self.mesh = mesh
         if mesh is not None:
             names = tuple(mesh.axis_names)
             if names != ("data", "space"):
                 raise ValueError(
                     f'mesh axes must be ("data", "space"), got {names}'
+                )
+            if batch_sampler == "direct":
+                # The sharded pairs are SAT and fused; serving unsharded
+                # instead would misreport what the loop runs.
+                raise ValueError(
+                    "--mesh has no sharded direct sampler; use "
+                    "auto, sat, or fused"
                 )
             if sat_compression == "svd":
                 log.warning(

@@ -312,13 +312,32 @@ def test_stages(capsys, stage):
 
 
 @pytest.mark.parametrize("argv", [
-    ["perf", "--sampler", "direct", "--resolutions", "1080p"],
-    ["perf", "--batch-sampler", "direct", "--clients", "2"],
-    ["serve", "--batch-sampler", "direct"],
-], ids=["perf-sampler", "perf-batch-sampler", "serve-batch-sampler"])
-def test_direct_sampler_refused(capsys, argv):
-    assert pt_cli.main(["--device", "cpu"] + argv) != 0
-    assert "'direct' sampler is not ported" in capsys.readouterr().err
+    ["perf", "--sampler", "direct", "--resolutions", "1080p", "--frames", "4"],
+    ["perf", "--batch-sampler", "direct", "--clients", "2", "--resolutions",
+     "1080p", "--frames", "4"],
+], ids=["perf-sampler", "perf-batch-sampler"])
+def test_direct_sampler_runs(tmp_path, capsys, argv):
+    """``perf`` with the direct sampler, single gaze or batched, prints
+    foveax's lines (perf's smallest resolution is 1080p).  foveax's few
+    milliseconds a jitted step can drown in timer noise here, and then it
+    prints its noise message to stderr in place of a line."""
+    (rc_f, out_f), (rc_p, out_p) = _run(tmp_path, argv, capsys)
+    assert rc_f == rc_p == 0
+    timing = r" +[0-9.]+ ms/frame  [0-9.]+ (client-)?fps"
+    want = ["1080p: 1920x1080 -> 1072x608"]
+    if "--clients" in argv:
+        want.append("1080p x2 clients (SAT-free direct, batched):")
+    assert _lines_without(out_p, timing) == want
+    assert set(_lines_without(out_f, timing)) <= set(want)
+
+
+def test_serve_direct_broadcast(tmp_path, capsys):
+    """``serve --broadcast --batch-sampler direct`` (a subprocess of the
+    port's CLI) serves a client on ``synthetic://96x64``: every received
+    frame is written."""
+    pngs = _serve_and_receive(tmp_path, ["--broadcast", "--batch-sampler", "direct"])
+    assert [p.name for p in pngs] == [f"frame_{i:03d}.png" for i in range(4)]
+    assert "frames" in capsys.readouterr().out
 
 
 def _subcommands(cli):
@@ -407,10 +426,10 @@ def test_serve_mesh_builds_a_mesh_server(monkeypatch):
     assert server.batch_sampler == "sat" and server.broadcast
 
 
-def test_serve_and_client_subcommands(tmp_path, capsys):
-    """``serve`` (a subprocess of the port's CLI) and ``client --out-dir``
-    on the CPU: the client writes every received frame as a PNG and prints
-    its stats."""
+def _serve_and_receive(tmp_path, serve_args):
+    """Start ``serve`` (a subprocess of the port's CLI, jpeg wire, plus
+    ``serve_args``) and run ``client --out-dir`` against it on the CPU;
+    returns the PNGs the client wrote."""
     import socket
     import subprocess
     import sys
@@ -423,7 +442,7 @@ def test_serve_and_client_subcommands(tmp_path, capsys):
     root = Path(__file__).resolve().parents[1]
     server = subprocess.Popen(
         [sys.executable, "-m", "foveax_torch.cli.main", "--device", "cpu",
-         "serve", "--port", str(port), "--wire-codec", "jpeg"],
+         "serve", "--port", str(port), "--wire-codec", "jpeg", *serve_args],
         cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
     )
     try:
@@ -445,7 +464,14 @@ def test_serve_and_client_subcommands(tmp_path, capsys):
         server.terminate()
         server.wait(timeout=30)
     assert rc == 0
-    pngs = sorted(out_dir.iterdir())
+    return sorted(out_dir.iterdir())
+
+
+def test_serve_and_client_subcommands(tmp_path, capsys):
+    """``serve`` (a subprocess of the port's CLI) and ``client --out-dir``
+    on the CPU: the client writes every received frame as a PNG and prints
+    its stats."""
+    pngs = _serve_and_receive(tmp_path, [])
     assert [p.name for p in pngs] == [f"frame_{i:03d}.png" for i in range(4)]
     assert all(load_png(p).shape == (64, 96, 3) for p in pngs)
     assert "frames" in capsys.readouterr().out

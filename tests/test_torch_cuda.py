@@ -1,8 +1,8 @@
 """The CUDA kernels of foveax_torch on the card: each wrapper against its
 plain version (tolerance 0, the SAT compared through its int32 view), its
-input checks and its launch count; the SAT pipeline against the fused one;
-the streaming server and client on the card; the sharded functions and the
-mesh server of chip_smoke.py's phase 9.
+input checks and its launch count; the SAT and direct pipelines against the
+fused one; the streaming server and client on the card; the sharded
+functions and the mesh server of chip_smoke.py's phase 9.
 
 These tests need a CUDA device and skip without one.  On the card, run
 
@@ -401,8 +401,9 @@ def test_select_rows_lists(pipe, case):
         _equal(g, w_)
 
 
-@pytest.mark.parametrize("batch_sampler", [None, "fused", "sat"],
-                         ids=["session", "broadcast-fused", "broadcast-sat"])
+@pytest.mark.parametrize("batch_sampler", [None, "fused", "sat", "direct"],
+                         ids=["session", "broadcast-fused", "broadcast-sat",
+                              "broadcast-direct"])
 def test_serve_loopback_on_card(pipe, batch_sampler):
     """The port's server and client on the card at 1920x1080 -> 1072x608
     through chip_smoke.py's in-memory connection pair: the served reduced
@@ -481,11 +482,12 @@ def test_cli_on_card_equals_cpu(pipe, tmp_path, what):
                                str(tmp_path / "cpu" / "rt.mp4"), frames)
 
 
-@pytest.mark.parametrize("stage", [3, 4, 5])
+@pytest.mark.parametrize("stage", [3, 4, 5, 6])
 def test_cli_stage_on_card(pipe, stage):
-    """Stages 3-5 of the CLI's ``stages`` on the card at their fixed
-    shapes (1080p stream, 4K SAT path with viewport, 8 gazes at 4K): each
-    passes, with the launch counts chip_smoke.py expects of it."""
+    """Stages 3-6 of the CLI's ``stages`` on the card at their fixed
+    shapes (1080p stream, 4K SAT path with viewport, 8 gazes at 4K, the
+    direct sampler at 4K): each passes, with the launch counts
+    chip_smoke.py expects of it."""
     from foveax_torch.cli import stages
 
     kernels = chip_smoke.kernel_table()
@@ -493,6 +495,33 @@ def test_cli_stage_on_card(pipe, stage):
     assert stages.STAGES[stage - 1](device="cuda")
     chip_smoke.expect_counts(f"stage {stage}", chip_smoke.read_counts(kernels),
                              chip_smoke.STAGE_EXPECTED[stage])
+
+
+def test_direct_sampler_on_card(pipe, frame):
+    """The direct sampler on the card: equal to the fused sampler, single
+    and batched, with no kernel launched, and no host sync at a fresh gaze
+    under ``set_sync_debug_mode("error")``."""
+    kernels = chip_smoke.kernel_table()
+    direct = FoveationPipeline(CFG, sampler="direct")
+    centers = torch.tensor(CENTERS, dtype=torch.float32, device="cuda")
+    hwc = frame.permute(1, 2, 0).contiguous()
+    want = [pipe.foveate_chw(frame, c) for c in centers]
+    want_batch = pipe.sample_batch_fused(hwc, centers)
+    fresh = torch.tensor([0.3141, 0.2718], dtype=torch.float32, device="cuda")
+    direct.foveate_chw(frame, centers[0])  # index tensors built once
+    chip_smoke.zero_counts(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [direct.foveate_chw(frame, c) for c in centers]
+        got_batch = direct.sample_batch_direct(hwc, centers)
+        direct.foveate_chw(frame, fresh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    chip_smoke.expect_counts("direct", chip_smoke.read_counts(kernels), {})
+    for g, w_ in zip(got, want):
+        _equal(g, w_)
+    _equal(got_batch, want_batch)
 
 
 def test_mesh_dryrun_on_card(pipe):

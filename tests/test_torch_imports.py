@@ -181,9 +181,8 @@ def test_smoke_fails_alone(tmp_path):
 
 def test_core_exports_mirror_foveax():
     """``foveax_torch.core`` exports what ``foveax.core`` exports, apart
-    from ``sample_rect_direct`` (a TPU workaround, not ported) and
-    ``delta_1d`` (a traced float32 delta; the port's deltas are the host's
-    float64 ``delta64``).  foveax's list is read from its source, so JAX is
+    from ``delta_1d`` (a traced float32 delta; the port's deltas are the
+    host's float64 ``delta64``).  foveax's list is read from its source, so JAX is
     not imported."""
     import foveax_torch.core as core
 
@@ -192,6 +191,13 @@ def test_core_exports_mirror_foveax():
         ast.literal_eval(node.value) for node in tree.body
         if isinstance(node, ast.Assign) and node.targets[0].id == "__all__"
     ]
-    assert set(fx_all) - {"sample_rect_direct", "delta_1d"} <= set(core.__all__)
+    assert set(fx_all) - {"delta_1d"} <= set(core.__all__)
     assert set(core.__all__) - set(fx_all) == {"delta64"}
     assert all(hasattr(core, name) for name in core.__all__)
+    # Names foveax.core imports beyond its __all__ (sample_rect_direct).
+    imported = {
+        alias.asname or alias.name for node in tree.body
+        if isinstance(node, ast.ImportFrom) for alias in node.names
+    }
+    assert "sample_rect_direct" in imported
+    assert all(hasattr(core, name) for name in imported - {"delta_1d"})

@@ -2,8 +2,9 @@
 against foveax's at 1920x512 -> 1072x288: the fused path (its roundtrip,
 and the fused foveate -> unwarp step that foveax's bench times as
 ``step_fused``), the SAT path (``sampler="sat"``: foveate, roundtrip,
-their batches and the serve pairs) and the degrade to SAT of a shape
-outside the fused sampler's contract."""
+their batches and the serve pairs), the direct path (``sampler="direct"``
+and ``batch_pair("direct")``) and the degrade to SAT of a shape outside
+the fused sampler's contract."""
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +61,10 @@ def setup():
         fx_sat=FxPipeline(FxConfig(**SIZE), sampler="sat"),
         pipe_sat=FoveationPipeline(
             FoveaxConfig(**SIZE), sampler="sat", device="cpu"
+        ),
+        fx_direct=FxPipeline(FxConfig(**SIZE), sampler="direct"),
+        pipe_direct=FoveationPipeline(
+            FoveaxConfig(**SIZE), sampler="direct", device="cpu"
         ),
     )
 
@@ -143,8 +148,29 @@ def test_serve_pairs(setup):
         fx_prepare(jnp.asarray(setup["frame"])), jnp.asarray(centers.numpy())
     )
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(ValueError, match="'sat' and 'fused'"):
-        pipe.batch_pair("direct")
+    prepare, sample_batch = pipe.batch_pair("direct")
+    assert prepare(frame) is frame
+    np.testing.assert_array_equal(
+        sample_batch(prepare(frame), centers).numpy(), got.numpy()
+    )
+
+
+@pytest.mark.parametrize("center", CENTERS)
+def test_direct_pipeline_matches_foveax(setup, center):
+    """``sampler="direct"``: the roundtrip equals foveax's direct pipeline
+    and the fused path (tolerance 0), in both layouts."""
+    pipe = setup["pipe_direct"]
+    assert pipe.sampler == "direct"
+    frame = torch.from_numpy(setup["frame"])
+    c = pipe.center(*center)
+    red, out = pipe.roundtrip(frame, c)
+    fx = setup["fx_direct"]
+    want_red, want_out = fx.roundtrip(jnp.asarray(setup["frame"]), fx.center(*center))
+    np.testing.assert_array_equal(red.numpy(), np.asarray(want_red))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want_out))
+    np.testing.assert_array_equal(red.numpy(), setup["pipe"].foveate(frame, c).numpy())
+    red_chw = pipe.foveate_chw(frame.permute(2, 0, 1).contiguous(), c)
+    np.testing.assert_array_equal(red_chw.permute(1, 2, 0).numpy(), red.numpy())
 
 
 def test_sat_serve_pairs(setup):
@@ -223,12 +249,20 @@ SMALL = dict(
 def test_ineligible_shape_raises():
     """An explicit "fused" on a shape outside its contract raises: the
     port refuses it through its uint16 row-sum bound (foveax's probe admits
-    it, and its fused sampler wraps there).  A sampler the port does not
-    have raises too."""
+    it, and its fused sampler wraps there).  The direct sampler, exact at
+    every shape, runs there and equals the SAT path; an unknown sampler
+    raises."""
     with pytest.raises(ValueError, match="contract"):
         FoveationPipeline(FoveaxConfig(**SMALL), sampler="fused", device="cpu")
-    with pytest.raises(ValueError, match="'sat' and 'fused'"):
-        FoveationPipeline(FoveaxConfig(**SMALL), sampler="direct", device="cpu")
+    pipe = FoveationPipeline(FoveaxConfig(**SMALL), sampler="direct", device="cpu")
+    sat = FoveationPipeline(FoveaxConfig(**SMALL), sampler="sat", device="cpu")
+    frame = torch.from_numpy(
+        np.random.default_rng(24).integers(0, 256, (1080, 1920, 3), np.uint8)
+    )
+    c = pipe.center(0.98, 0.03)
+    assert torch.equal(pipe.foveate(frame, c), sat.foveate(frame, c))
+    with pytest.raises(ValueError, match="expected one of"):
+        FoveationPipeline(FoveaxConfig(**SMALL), sampler="mm", device="cpu")
 
 
 def test_ineligible_shape_degrades_to_sat():

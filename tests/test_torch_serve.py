@@ -3,8 +3,9 @@ the functional behaviour of the JAX package's serve tests (text replies,
 broadcast, malformed input, the gaze trust boundary, path traversal, the
 channel lifecycle, resolution checks, the pipeline cache, decimation,
 AIMD, the readback guard), the SVD serve mode, the in-memory connection
-pair that chip_smoke.py serves through, the device default, what is not
-ported, the mesh constructor checks and round-robin placement.  No test
+pair that chip_smoke.py serves through, the direct batch sampler, the
+device default, the option checks, the mesh constructor checks and
+round-robin placement.  No test
 here asserts a time."""
 
 import asyncio
@@ -405,7 +406,7 @@ def test_preset_pressure_exhausted_ladder_returns_false():
     assert server._preset_pressure == 1
 
 
-@pytest.mark.parametrize("what", ["session", "fused", "sat"])
+@pytest.mark.parametrize("what", ["session", "fused", "sat", "direct"])
 def test_memory_pair_loopback(what):
     """chip_smoke.py's serve phase at a CPU size through its in-memory
     connection pair: every reduced and restored frame equal to the CPU
@@ -419,6 +420,29 @@ def test_memory_pair_loopback(what):
         assert 1 <= chip_smoke.served_ticks(clients) <= chip_smoke.BROADCAST_TICKS
     assert set(launches.values()) == {0}
     assert len(server.encoded) == sum(c.stats.frames for c in clients) > 0
+
+
+def test_direct_broadcast_equals_sat_channel():
+    """A broadcast channel with ``batch_sampler="direct"`` (chip_smoke.py's
+    in-memory pair, 4 clients) encodes, for every frame a client received,
+    the SAT pipeline's reduced frame of that source frame at its gaze."""
+    import numpy as np
+
+    from foveax_torch import FoveationPipeline
+
+    server, clients, _ = chip_smoke.serve_broadcast(CFG, "cpu", "direct")
+    sat = FoveationPipeline(CFG, sampler="sat", device="cpu")
+    spec = f"synthetic://{CFG.source_width}x{CFG.source_height}@30/{chip_smoke.BROADCAST_TICKS}"
+    sources = chip_smoke.synthetic_frames(spec, chip_smoke.BROADCAST_TICKS)
+    want = sorted(
+        sat.foveate(
+            torch.from_numpy(sources[meta.frameNum]),
+            torch.tensor([meta.centerX, meta.centerY], dtype=torch.float32),
+        ).numpy().tobytes()
+        for c in clients for _, meta in c.restored
+    )
+    assert len(want) == sum(c.stats.frames for c in clients) > 0
+    assert sorted(np.ascontiguousarray(f).tobytes() for f in server.encoded) == want
 
 
 def test_device_default_needs_a_gpu():
@@ -435,7 +459,9 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="batch_sampler"):
         _server(sat_compression="svd", batch_sampler="fused")
     with pytest.raises(ValueError, match="batch_sampler"):
-        _server(batch_sampler="direct")
+        _server(sat_compression="svd", batch_sampler="direct")
+    with pytest.raises(ValueError, match="unknown batch_sampler"):
+        _server(batch_sampler="mm")
     with pytest.raises(ValueError):
         _server(place_videos="sideways")
     assert _server(place_videos="round_robin").place_videos == "round_robin"
@@ -453,7 +479,7 @@ def test_mesh_constructor_checks(caplog):
     assert _server(broadcast=True, mesh=mesh).mesh is mesh
     with pytest.raises(ValueError, match="mesh axes"):
         _server(broadcast=True, mesh=SimpleNamespace(axis_names=("x", "y")))
-    with pytest.raises(ValueError, match="batch_sampler"):
+    with pytest.raises(ValueError, match="--mesh has no sharded direct sampler"):
         _server(broadcast=True, mesh=mesh, batch_sampler="direct")
     with pytest.raises(ValueError, match="mutually exclusive"):
         _server(broadcast=True, mesh=mesh, place_videos="round_robin")
