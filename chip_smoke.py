@@ -143,6 +143,31 @@ Phases, each of which raises on failure (exit code 1):
    and the direct path's chained fps at 1080p and 4K, beside the card's
    name and power limit.
 
+11. The resolution ladder.  The fused path at 8K (7680x4320 -> 4272x2400)
+   and 16K (15360x8640 -> 8544x4800) over 4 chained gazes each, as in
+   phase 3 (``segreduce_xy`` and ``unwarp_xy`` +4, every other kernel +0;
+   the fovea of every roundtrip equal to its source); then every launch is
+   held on the card to its plain version on the same inputs (tolerance 0)
+   and each restored frame to the exact unwarp (at most 1 LSB).  The SAT
+   path at both sizes for one gaze (K5 +1, the SAT equal to the plain
+   version's, the reduced frame to the fused path's).  Then both paths'
+   chained fps at both sizes as in phase 4,
+   ``foveax_torch.scripts.stage_bench`` over 1080p, 4K, 8K and 16K and the
+   five stages (host and device ms per frame) and the CLI's ``perf
+   --resolutions 8k 16k`` with its launch counts, beside the card's name
+   and power limit.
+12. The shape fuzz: ``foveax_torch.scripts.fuzz_fused`` with seed 0 over 8
+   random shapes up to 16,384 x 2,200 (widths never a multiple of 16, the
+   first above 8,192), with no failure.
+13. Serving across processes: ``foveax_torch.scripts.two_process_demo`` at
+   1920x1080 over 60 frames, the server (``python -m foveax_torch.cli.main
+   --device cuda serve``) in a second process and the client in this one,
+   on the card and then on the CPU; every frame must arrive and the gaze
+   fan-in percentiles print.  Then the serving soak
+   (``foveax_torch.scripts.soak``) on the card for each wire codec: no
+   session, channel, native handle, fd or thread left, and the CUDA memory
+   allocated after each later cycle no higher than after the second.
+
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
 repository's ``foveax_torch`` package, the script exits non-zero and prints
@@ -173,6 +198,7 @@ from foveax_torch.core import sample as core_sample
 from foveax_torch.core.logrect import make_point_grid
 from foveax_torch.core.sat import build_sat
 from foveax_torch.core.svd_sat import compress_sat, sat_to_numpy
+from foveax_torch.core.unwarp import unwarp_rect
 from foveax_torch.graft_entry import dryrun_mesh_devices, dryrun_multichip
 from foveax_torch.io.video import SyntheticReader
 from foveax_torch.serve.client import SvdDecoder
@@ -183,8 +209,13 @@ from foveax_torch.kernels import unwarp as uw
 from foveax_torch.kernels.build import build
 from foveax_torch.parallel import make_mesh
 from foveax_torch.parallel import sharded
+from foveax_torch.io.wirecodec import available_wire_codecs
+from foveax_torch.scripts import fuzz_fused, soak, stage_bench
+from foveax_torch.scripts import two_process_demo
 
 SHAPES = {"1080p": (1920, 1080), "4k": (3840, 2160)}
+# Phase 11's sizes (7680x4320 -> 4272x2400, 15360x8640 -> 8544x4800).
+LADDER = {"8k": (7680, 4320), "16k": (15360, 8640)}
 GAZES = [(0.5, 0.5), (0.0, 0.0), (1.0, 1.0), (0.999, 0.001), (0.03, 0.4)]
 BATCH_GAZES = GAZES + [(0.25, 0.75), (0.8, 0.2), (0.6, 0.55)]
 N_FRAMES = 32
@@ -247,7 +278,7 @@ def kernel_table():
 
 
 def make_pipeline(shape: str, device: str, sampler: str = "auto"):
-    w, h = SHAPES[shape]
+    w, h = (SHAPES | LADDER)[shape]
     pipe = FoveationPipeline(
         FoveaxConfig().with_source(w, h), sampler=sampler, device=device
     )
@@ -1441,6 +1472,9 @@ STAGE_EXPECTED = {
 }
 PERF_DIRECT = ["perf", "--resolutions", "1080p", "--frames", "8", "--clients",
                "8", "--sampler", "direct", "--batch-sampler", "direct"]
+# Phase 11's perf: two resolutions, chain(2) twice and chain(20 + 2).
+PERF_LADDER = ["perf", "--resolutions", "8k", "16k"]
+PERF_LADDER_STEPS = 2 * (2 + 2 + 20 + 2)
 CLI_EXPECTED = {
     "single_frame logrect": {"segreduce_xy": 1},
     "single_frame logrect_point": {},
@@ -1456,6 +1490,7 @@ CLI_EXPECTED = {
     "stages": {name: sum(e.get(name, 0) for e in STAGE_EXPECTED.values())
                for name in ("segreduce_xy", "unwarp_xy", "sat_build")},
     "doctor": {"sat_build": 1},
+    "perf 8k 16k": {"segreduce_xy": PERF_LADDER_STEPS, "unwarp_xy": PERF_LADDER_STEPS},
 }
 
 
@@ -1964,6 +1999,176 @@ def phase_direct(kernels, device: str = "cuda") -> dict:
     return report
 
 
+# Phase 11: the resolution ladder.  The fused path over LADDER_FRAMES
+# chained gazes and the SAT path for one gaze at each size of LADDER; then
+# both paths' chained fps, the stage timings and the CLI's perf at 8K and
+# 16K.
+LADDER_FRAMES = 4
+STAGE_BENCH = ["--resolutions", "1080p", "4k", "8k", "16k", "--stages", "sat",
+               "sample", "fused", "direct", "unwarp", "--iters", "10"]
+
+
+def ladder_pipeline(w: int, h: int, device: str, sampler: str = "auto"):
+    pipe = FoveationPipeline(FoveaxConfig().with_source(w, h), sampler=sampler,
+                             device=device)
+    if pipe.sampler != ("fused" if sampler == "auto" else sampler):
+        raise AssertionError(f"{w}x{h}: {sampler} resolved to {pipe.sampler}")
+    return pipe
+
+
+def ladder_plain(errs, pipe, kept, restored, centers) -> int:
+    """Each chained frame's ``segreduce_xy`` and ``unwarp_xy`` output
+    against its plain version on the card, and the restored frame against
+    the exact unwarp; returns the largest |restored - exact|."""
+    h, w, _ = pipe.source_shape
+    worst = 0
+    for i, ((x, reduced), out, c) in enumerate(zip(kept, restored, centers)):
+        pxc, pxmc, vx, pyc, pymc, vy = sr.fused_taps(pipe.grid, x, c[None])
+        plain = sr.segment_reduce_xy_batch_plain(x, pxmc, pxc, vx, pymc, pyc, vy)
+        where = f"at {w}x{h}, frame {i}"
+        errs["segreduce_xy"] = max(errs.get("segreduce_xy", 0), check_equal(
+            "segreduce_xy", reduced, plain[0], where))
+        del plain
+        xv, yv = uw.fused_vectors(reduced.shape[1], reduced.shape[2], w, h, c)
+        errs["unwarp_xy"] = max(errs.get("unwarp_xy", 0), check_equal(
+            "unwarp_xy", out, uw.unwarp_xy_plain(reduced, xv, yv), where))
+        exact = unwarp_rect(reduced, w, h, c, in_layout="chw", out_layout="chw")
+        worst = max(worst, max_abs_err(out, exact))
+        del exact
+    if worst > 1:
+        raise AssertionError(f"{w}x{h}: a restored frame is {worst} LSB off the "
+                             "exact unwarp")
+    return worst
+
+
+def ladder_paths(kernels, errs, w: int, h: int, device: str = "cuda") -> dict:
+    """The fused path over :data:`LADDER_FRAMES` chained gazes, then the
+    SAT path at the first gaze (module docstring, phase 11); with
+    ``kernels`` None no launch is counted."""
+    shape = f"{w}x{h}"
+    pipe = ladder_pipeline(w, h, device)
+    frame = make_frame(pipe, SEED + 6)
+    gazes = gaze_trace(LADDER_FRAMES)
+    centers = [torch.from_numpy(g).to(device) for g in gazes]
+    if kernels:
+        zero_counts(kernels)
+    last, fovea_ok, kept = run_main_path(pipe, frame, gazes, centers, keep=True)
+    fused = read_counts(kernels) if kernels else {}
+    if kernels:
+        expect_counts(f"ladder fused {shape}", fused,
+                      {"segreduce_xy": LADDER_FRAMES, "unwarp_xy": LADDER_FRAMES})
+    if not bool(fovea_ok.all()):
+        raise AssertionError(f"ladder {shape}: fovea not exact at frames "
+                             f"{(~fovea_ok).nonzero().flatten().tolist()}")
+    restored = [x for x, _ in kept[1:]] + [last]
+    worst = ladder_plain(errs, pipe, kept, restored, centers)
+    x0, red0 = kept[0]
+    del kept, restored, last
+
+    sat_pipe = ladder_pipeline(w, h, device, "sat")
+    if kernels:
+        zero_counts(kernels)
+    sat = build_sat(x0, in_layout="chw")
+    red = sat_pipe.sample_chw(sat, centers[0])
+    sat_launches = read_counts(kernels) if kernels else {}
+    if kernels:
+        expect_counts(f"ladder sat {shape}", sat_launches, {"sat_build": 1})
+    errs["sat_build"] = max(errs.get("sat_build", 0), check_equal(
+        "sat_build", sat, scan2d.sat_scan_plain(x0), f"at {shape}"))
+    if not torch.equal(red, red0):
+        raise AssertionError(f"ladder sat {shape}: differs from the fused path")
+    hr, wr, _ = pipe.reduced_shape
+    print(f"ladder {w}x{h} -> {wr}x{hr}: fused path {LADDER_FRAMES} chained "
+          f"frames, launches {fused}, fovea exact, segreduce_xy and unwarp_xy "
+          f"equal to their plain versions, restored within {worst} LSB of the "
+          f"exact unwarp; SAT path launches {sat_launches}, K5 equal to its "
+          "plain version, reduced frame equal to the fused path's", flush=True)
+    return {"fused": fused, "sat": sat_launches}
+
+
+def captured(fn, argv) -> tuple[int, list[str]]:
+    """``fn(argv)`` with its printed lines captured."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def phase_ladder(kernels, errs) -> dict:
+    """The 8K and 16K paths, the stage timings and ``perf`` at 8K and 16K
+    (module docstring, phase 11)."""
+    t0 = time.perf_counter()
+    report = {shape: ladder_paths(kernels, errs, *LADDER[shape]) for shape in LADDER}
+    torch.cuda.empty_cache()
+    card = card_line()
+    report["fps"] = {f"{sampler} {shape}": phase_path_fps(shape, sampler)
+                     for shape in LADDER for sampler in ("fused", "sat")}
+    print(f"ladder fps card: {card}", flush=True)
+    torch.cuda.empty_cache()
+    rc, lines = captured(stage_bench.main, STAGE_BENCH)
+    if rc != 0 or len(lines) != 4 * 5:
+        raise AssertionError(f"stage_bench: exit code {rc}, lines {lines}")
+    for line in lines:
+        print(f"stage_bench {line}  [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    perf = cli_card(kernels, "perf 8k 16k", PERF_LADDER).splitlines()
+    for line in perf:
+        print(f"cli perf 8k 16k: {line}  [{card}]", flush=True)
+    print(f"ladder phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    report["stage_bench"], report["perf"] = lines, perf
+    return report
+
+
+# Phase 12: the shape fuzz.
+FUZZ = ["0", "8"]
+
+
+def phase_fuzz(device: str = "cuda", fuzz=FUZZ) -> list[str]:
+    t0 = time.perf_counter()
+    rc, lines = captured(fuzz_fused.main, [*fuzz, "--device", device])
+    for line in lines:
+        print(f"fuzz {line}", flush=True)
+    if rc != 0 or lines[-1] != "FAILS: 0":
+        raise AssertionError(f"fuzz_fused {' '.join(fuzz)}: exit code {rc}")
+    print(f"fuzz phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return lines
+
+
+# Phase 13: serving across processes, then the soak.
+DEMO_FRAMES = 60
+DEMO = ["--resolution", "1920x1080", "--frames", str(DEMO_FRAMES)]
+
+
+def phase_processes(server_device: str = "cuda", client_devices=("cuda", "cpu"),
+                    demo=DEMO, soak_device: str = "cuda") -> dict:
+    """Two-process demos, one per client device, then the soak on
+    ``soak_device`` for each wire codec (module docstring, phase 13)."""
+    t0 = time.perf_counter()
+    card = card_line() if "cuda" in (server_device, *client_devices) else "cpu"
+    report = {}
+    for client in client_devices:
+        argv = [*demo, "--server-device", server_device, "--client-device", client]
+        rc, lines = captured(two_process_demo.main, argv)
+        for line in lines:
+            print(f"demo client {client}: {line}  [{card}]", flush=True)
+        frames = demo[demo.index("--frames") + 1]
+        if rc != 0 or not any(l.startswith(f"[demo] frames: {frames} in")
+                              for l in lines):
+            raise AssertionError(f"two_process_demo {' '.join(argv)}: exit code {rc}")
+        if not any("gaze fan-in latency" in l for l in lines):
+            raise AssertionError(f"two_process_demo {' '.join(argv)}: no fan-in line")
+        report[f"demo {client}"] = lines
+    for wire in ["jpeg"] + (["h264"] if "h264" in available_wire_codecs() else []):
+        result = soak.churn(soak_device, wire)
+        found = soak.residue(result)
+        print(f"soak {soak_device} {wire}: {result}", flush=True)
+        if found:
+            raise AssertionError(f"soak {wire}: {found}")
+        report[f"soak {wire}"] = result
+    print(f"processes phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return report
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2007,6 +2212,9 @@ def main() -> int:
     phase_cli(kernels)
     phase_mesh(kernels)
     phase_direct(kernels)
+    phase_ladder(kernels, errs)
+    phase_fuzz()
+    phase_processes()
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {

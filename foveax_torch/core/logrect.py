@@ -113,6 +113,17 @@ class LogRectGrid:
     def device(self) -> torch.device:
         return self.gx.device
 
+    def dense(self) -> np.ndarray:
+        """(len(gy), len(gx), 2) int16 dense grid, the reference's grid
+        buffer layout (the JAX package's ``LogRectGrid.dense``), built
+        from the host copies: no device read."""
+        gx = np.frombuffer(self.gx_host, dtype=np.int64).astype(np.int16)
+        gy = np.frombuffer(self.gy_host, dtype=np.int64).astype(np.int16)
+        out = np.empty((gy.shape[0], gx.shape[0], 2), dtype=np.int16)
+        out[..., 0] = gx[None, :]
+        out[..., 1] = gy[:, None]
+        return out
+
 
 def grid_from_numpy(
     gx: np.ndarray,

@@ -12,6 +12,8 @@
     foveate_batch(frame, centers)     one SAT, N gazes
     sample_batch_fused(frame, cs)     one frame, N gazes, one launch per pass
     sample_batch_direct(frame, cs)    one frame, N gazes, no SAT, no kernel
+    default_pipeline(device)          the default configuration's pipeline,
+                                      cached per device
 
 The ``_chw`` variants take and return channel-planar (3, H, W) frames, the
 layout of the device-resident hot path.  Gaze centres are runtime tensors:
@@ -30,6 +32,8 @@ only its Pallas structure and admits some such shapes (1920x1080 ->
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -239,3 +243,14 @@ class FoveationPipeline:
     @property
     def source_shape(self) -> tuple[int, int, int]:
         return (self.config.source_height, self.config.source_width, 3)
+
+
+def default_pipeline(device: str | torch.device | None = None) -> FoveationPipeline:
+    """The pipeline of the default :class:`FoveaxConfig` on ``device``
+    (``cuda`` unless told otherwise), built once per device."""
+    return _default_pipeline(resolve_device(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _default_pipeline(device: torch.device) -> FoveationPipeline:
+    return FoveationPipeline(device=device)

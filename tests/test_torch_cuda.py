@@ -2,7 +2,9 @@
 plain version (tolerance 0, the SAT compared through its int32 view), its
 input checks and its launch count; the SAT and direct pipelines against the
 fused one; the streaming server and client on the card; the sharded
-functions and the mesh server of chip_smoke.py's phase 9.
+functions and the mesh server of chip_smoke.py's phase 9; K5,
+``segreduce_xy`` and ``unwarp_xy`` at 16K and the serving soak's CUDA
+memory (phases 11 and 13).
 
 These tests need a CUDA device and skip without one.  On the card, run
 
@@ -22,6 +24,7 @@ from foveax_torch.kernels import fused_select as fs
 from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
 from foveax_torch.kernels import unwarp as uw
+from foveax_torch.scripts import soak
 
 pytestmark = pytest.mark.cuda
 
@@ -374,6 +377,50 @@ def test_sat_build_8k_wraps(pipe):
     got = scan2d.sat_scan(chw.permute(1, 2, 0).contiguous(), in_layout="hwc")
     _equal(got, scan2d.sat_scan_plain(chw))
     assert int(scan2d.as_int64(got[:, -1, -1])[0]) == 255 * h * w % 2**32
+
+
+@pytest.mark.parametrize("h, w", [(8640, 15360), (1200, 9001)],
+                         ids=["16k", "width-9001"])
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_sat_build_two_chunk_plan(pipe, h, w, layout):
+    """K5 in its two-chunk launch plan (``chunks_per_thread`` 2) over many
+    bands: at 16K, whose 1.59 GB SAT puts byte offsets past 2^31, and at
+    width 9001, not a multiple of 16."""
+    plan = scan2d.sat_plan(h, w, column_stride=1 if layout == "chw" else 3)
+    assert plan.chunks_per_thread == 2 and plan.launches == 3
+    chw = _sat_frame(h, w, w)
+    frame = chw if layout == "chw" else chw.permute(1, 2, 0).contiguous()
+    _equal(scan2d.sat_scan(frame, in_layout=layout), scan2d.sat_scan_plain(chw))
+    del chw, frame
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("gazes", [[(0.5, 0.5)], [(0.999, 0.001), (0.0, 0.0), (0.3, 0.7)]],
+                         ids=["centre", "batch"])
+def test_xy_and_unwarp_at_16k(pipe, gazes):
+    """``segreduce_xy`` (99,520 bytes of shared memory a block, above the
+    48 KB default) and ``unwarp_xy`` at 15360x8640 -> 8544x4800 against
+    their plain versions."""
+    p16 = FoveationPipeline(FoveaxConfig().with_source(15360, 8640))
+    assert sr.xy_shared_bytes(15360, 8544) == 99_520 and p16.sampler == "fused"
+    frame = _sat_frame(8640, 15360, 16)
+    args = _xy_args(p16.grid, frame, gazes)
+    got = sr.segment_reduce_xy_batch(*args)
+    _equal(got, sr.segment_reduce_xy_batch_plain(*args))
+    c = torch.tensor(gazes[0], dtype=torch.float32, device="cuda")
+    xv, yv = uw.fused_vectors(4800, 8544, 15360, 8640, c)
+    _equal(uw.unwarp_xy(got[0], xv, yv), uw.unwarp_xy_plain(got[0], xv, yv))
+    del frame, args, got
+    torch.cuda.empty_cache()
+
+
+def test_soak_on_card(pipe):
+    """The serving soak on the card: no residue, and the CUDA memory held
+    by tensors after each later cycle no higher than after the second,
+    when both shapes have warmed up."""
+    report = soak.churn("cuda", "jpeg")
+    assert soak.residue(report) == []
+    assert all(m <= report.memory[1] for m in report.memory[2:]), report.memory
 
 
 def _select_lists(h: int):

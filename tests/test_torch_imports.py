@@ -59,7 +59,9 @@ def test_port_and_smoke_import_neither_jax_nor_foveax():
         "foveax_torch.io.png", "foveax_torch.io.gaze",
         "foveax_torch.pipeline.runner", "foveax_torch.pipeline.profiling",
         "foveax_torch.cli.main", "foveax_torch.cli.stages",
-        "foveax_torch.cli.ladder",
+        "foveax_torch.cli.ladder", "foveax_torch.scripts.stage_bench",
+        "foveax_torch.scripts.fuzz_fused", "foveax_torch.scripts.two_process_demo",
+        "foveax_torch.scripts.soak",
     ):
         assert name in report["modules"]
 

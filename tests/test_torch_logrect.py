@@ -130,3 +130,44 @@ def test_grid_from_numpy_checks_shapes():
     gy = fx_logrect._grid_axis(608, 1080)
     with pytest.raises(ValueError, match="do not match"):
         grid_from_numpy(gx, gy, 1072, 600, 1920, 1080, "cpu")
+
+
+@pytest.mark.parametrize("shape", [(1920, 1080), (3840, 2160), (96, 64)],
+                         ids=["1080p", "4k", "96x64"])
+def test_dense_matches(shape):
+    """``LogRectGrid.dense()`` equals foveax's (tolerance 0), with no
+    device read: it is built from the host copies of the vectors."""
+    cfg = FxConfig().with_source(*shape)
+    dims = (cfg.reduced_width, cfg.reduced_height, *cfg.source_size)
+    want = fx_logrect.make_grid(*dims).dense()
+    got = make_grid(*dims, device="cpu").dense()
+    assert got.dtype == np.int16 and got.shape == want.shape
+    assert got.shape == (cfg.reduced_height + 1, cfg.reduced_width + 1, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+def _delta_1d_float32(u: np.ndarray, out_dim: int, source_dim: int) -> np.ndarray:
+    """foveax's ``delta_1d`` transcribed to torch float32, with XLA's
+    saturating float-to-int32 cast."""
+    tu = torch.from_numpy(u)
+    au = tu.abs()
+    t = (2.0 * au.to(torch.float32) / np.float32(out_dim)) ** 4
+    mag = torch.tensor(logrect.lam(source_dim)) * (torch.exp(t) - 1.0)
+    mag = mag.clamp(max=2**31 - 1).to(torch.int64).clamp(max=2**31 - 1)
+    return (torch.maximum(au, mag.to(torch.int32)) * torch.sign(tu)).numpy()
+
+
+@pytest.mark.parametrize("name", ["1080p", "4k", "8k", "16k"])
+def test_delta_1d_has_no_float32_twin(name):
+    """Why ``delta_1d`` stays out of ``foveax_torch.core``: a torch
+    float32 transcription of it (even with XLA's saturating cast) differs
+    from foveax's jitted one at some of the 2r + 1 offsets of every axis,
+    r the reduced dim (the two float32 ``exp``s differ by ulps), while
+    the port's grid is the float64 ``delta64``'s, as foveax's own grids
+    are (test_grid_axis_matches)."""
+    for full, red in _axes(name):
+        u = np.arange(-red, red + 1, dtype=np.int32)
+        want = np.asarray(jax.jit(
+            lambda u: fx_logrect.delta_1d(u, red, full))(jnp.asarray(u)))
+        differ = int((_delta_1d_float32(u, red, full) != want).sum())
+        assert 0 < differ < u.size, (full, red, differ)

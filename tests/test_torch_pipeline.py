@@ -302,3 +302,25 @@ def test_ineligible_shape_saturated_edge_gaze():
     got = pipe.foveate(torch.from_numpy(frame), pipe.center(*center)).numpy()
     np.testing.assert_array_equal(got, want)
     assert set(np.unique(got)) == {0, 255}
+
+
+def test_default_pipeline_matches_foveax(monkeypatch):
+    """``default_pipeline(device="cpu")`` has foveax's configuration, wrap
+    and grid, and the sampler foveax's "auto" takes on an accelerator
+    (fused; on the CPU foveax's takes its SAT path); it is built once per
+    device, and the default device is the card (raises without a GPU)."""
+    import dataclasses
+
+    from foveax.pipeline.frames import default_pipeline as fx_default
+    from foveax_torch.pipeline.frames import default_pipeline
+
+    fx, pipe = fx_default(), default_pipeline(device="cpu")
+    assert dataclasses.asdict(pipe.config) == dataclasses.asdict(fx.config)
+    assert (pipe.sampler, pipe.wrap_x) == ("fused", fx._wrap_x)
+    assert pipe.device.type == "cpu"
+    np.testing.assert_array_equal(pipe.grid.gx.numpy(), np.asarray(fx.grid.gx))
+    np.testing.assert_array_equal(pipe.grid.gy.numpy(), np.asarray(fx.grid.gy))
+    assert default_pipeline(device="cpu") is pipe
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_pipeline()
