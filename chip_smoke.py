@@ -167,6 +167,22 @@ Phases, each of which raises on failure (exit code 1):
    (``foveax_torch.scripts.soak``) on the card for each wire codec: no
    session, channel, native handle, fd or thread left, and the CUDA memory
    allocated after each later cycle no higher than after the second.
+14. The sharded fuzz and a hostile stream.
+   ``foveax_torch.scripts.fuzz_sharded`` with seed 0 over 6 random shapes
+   (widths 128 to 4,096, never a multiple of 16; heights up to 2,160 whose
+   space blocks end inside K5's 32-row band; meshes 1x8, 2x4, 4x2, 8x1
+   over eight distinct cards where eight are visible, else ``cuda:0``
+   eight times), then the all-255 4808x4000 frame on the 1x8 mesh, whose
+   sums wrap past 2^32: every sharded output equal to the single-device
+   path and to the same call on a mesh of CPU entries, K5 launched once a
+   space block (twice a shape) and once alone, ``segreduce_xy`` once a
+   data shard, with no failure.  Then the port's ``FoveaxClient`` is fed,
+   through :func:`memory_pair`, a stream whose init segment declares other
+   dimensions than its configuration's, and one whose init segment
+   matches but whose sample decodes to other dimensions: each must raise
+   ValueError in the client with no kernel launched, and an ``unwarp_xy``
+   launch after them must equal ``unwarp_xy_plain`` (tolerance 0).  The
+   phase's wall time prints beside the card's name and power limit.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -200,6 +216,7 @@ from foveax_torch.core.sat import build_sat
 from foveax_torch.core.svd_sat import compress_sat, sat_to_numpy
 from foveax_torch.core.unwarp import unwarp_rect
 from foveax_torch.graft_entry import dryrun_mesh_devices, dryrun_multichip
+from foveax_torch.io.mux import FragmentWriter
 from foveax_torch.io.video import SyntheticReader
 from foveax_torch.serve.client import SvdDecoder
 from foveax_torch.kernels import fused_select as fs
@@ -209,8 +226,8 @@ from foveax_torch.kernels import unwarp as uw
 from foveax_torch.kernels.build import build
 from foveax_torch.parallel import make_mesh
 from foveax_torch.parallel import sharded
-from foveax_torch.io.wirecodec import available_wire_codecs
-from foveax_torch.scripts import fuzz_fused, soak, stage_bench
+from foveax_torch.io.wirecodec import JpegWireEncoder, available_wire_codecs
+from foveax_torch.scripts import fuzz_fused, fuzz_sharded, soak, stage_bench
 from foveax_torch.scripts import two_process_demo
 
 SHAPES = {"1080p": (1920, 1080), "4k": (3840, 2160)}
@@ -2169,6 +2186,126 @@ def phase_processes(server_device: str = "cuda", client_devices=("cuda", "cpu"),
     return report
 
 
+# Phase 14: the sharded fuzz, then hostile streams into the client.
+SHARDED_FUZZ = ["0", "6"]
+
+
+async def _hostile_server(conn, messages: list[bytes]) -> None:
+    """A server end that waits for the client's video request, sends
+    ``messages`` and then reads until the connection closes."""
+    async for _ in conn:
+        for message in messages:
+            await conn.send(message)
+        break
+    async for _ in conn:
+        pass
+
+
+async def _feed_client(client, messages: list[bytes]) -> ValueError | None:
+    """Run ``client`` against :func:`_hostile_server`; returns what it
+    raised (None if it returned)."""
+    server_end, client_end = memory_pair()
+    server = asyncio.create_task(_hostile_server(server_end, messages))
+    try:
+        await asyncio.wait_for(client.run_on(client_end), SERVE_TIMEOUT_S)
+        return None
+    except ValueError as e:
+        return e
+    finally:
+        await client_end.close()
+        await asyncio.wait_for(server, SERVE_TIMEOUT_S)
+
+
+def hostile_streams(cfg) -> dict[str, tuple[list[bytes], str]]:
+    """name -> (the messages a hostile server sends, the start of the
+    ValueError the client must raise): an init segment whose dimensions
+    are not the configuration's reduced frame, and a matching init segment
+    whose JPEG sample is 16 columns wider."""
+    wr, hr = cfg.reduced_width, cfg.reduced_height
+    rng = np.random.default_rng(SEED + 14)
+    wide = JpegWireEncoder(wr + 16, hr).encode(
+        rng.integers(0, 256, (hr, wr + 16, 3), np.uint8))[0]
+    other = FragmentWriter(wr + 16, hr, 30.0, b"jpeg", backend="python")
+    same = FragmentWriter(wr, hr, 30.0, b"jpeg", backend="python")
+    return {
+        "init-dims": ([other.header(), other.frame(wide)],
+                      f"stream is {wr + 16}x{hr} but the client pipeline expects"),
+        "sample-dims": ([same.header(), same.frame(wide)],
+                        f"decoded sample is {wr + 16}x{hr}, expected {wr}x{hr}"),
+    }
+
+
+def phase_hostile(kernels, cfg=None, device: str = "cuda") -> list[str]:
+    """Hostile streams into the port's client on ``device``: each must
+    raise ValueError with no launch; then one ``unwarp_xy`` launch equal
+    to its plain version (module docstring, phase 14)."""
+    cfg = cfg or FoveaxConfig()
+    report = []
+    for name, (messages, want) in hostile_streams(cfg).items():
+        client = FoveaxClient("memory", video="hostile", config=cfg, max_frames=1,
+                              device=device)
+        zero_counts(kernels)
+        err = asyncio.run(_feed_client(client, messages))
+        launches = read_counts(kernels)
+        if err is None or not str(err).startswith(want):
+            raise AssertionError(f"hostile {name}: raised {err!r}, expected "
+                                 f"ValueError({want!r}...)")
+        expect_counts(f"hostile {name}", launches, {})
+        tb = err.__traceback__
+        while tb.tb_next is not None:
+            tb = tb.tb_next
+        report.append(f"hostile {name}: ValueError at "
+                      f"{os.path.relpath(tb.tb_frame.f_code.co_filename)}:"
+                      f"{tb.tb_lineno} ({err}); launches {launches}")
+    rng = np.random.default_rng(SEED + 15)
+    w, h = cfg.source_width, cfg.source_height
+    reduced = torch.from_numpy(rng.integers(
+        0, 256, (3, cfg.reduced_height, cfg.reduced_width), np.uint8)).to(device)
+    center = torch.tensor(MATH_GAZE, dtype=torch.float32, device=device)
+    vectors = uw.fused_vectors(cfg.reduced_height, cfg.reduced_width, w, h, center)
+    zero_counts(kernels)
+    out = uw.unwarp_xy(reduced, *vectors)
+    launches = read_counts(kernels)
+    if device == "cuda":
+        expect_counts("hostile then unwarp_xy", launches, {"unwarp_xy": 1})
+    err = check_equal("unwarp_xy", out, uw.unwarp_xy_plain(reduced, *vectors),
+                      "after the hostile streams")
+    report.append(f"hostile then unwarp_xy {w}x{h}: launches {launches}, "
+                  f"max_abs_err {err} against unwarp_xy_plain")
+    return report
+
+
+def phase_sharded_fuzz(kernels=None, device: str = "cuda", fuzz=SHARDED_FUZZ,
+                       wrap: tuple[int, int] | None = None, cfg=None) -> dict:
+    """``fuzz_sharded`` on ``device`` with the wrap case (``wrap`` (W, H),
+    default the fuzz's 4808x4000), then the hostile streams (module
+    docstring, phase 14); returns the printed lines and the launch
+    totals."""
+    t0 = time.perf_counter()
+    kernels = kernels or kernel_table()
+    card = card_line() if device == "cuda" else "cpu"
+    argv = [*fuzz, "--device", device]
+    if wrap is not None:
+        argv += ["--wrap", f"{wrap[0]}x{wrap[1]}"]
+    rc, lines = captured(fuzz_sharded.main, argv)
+    for line in lines:
+        print(f"sharded fuzz {line}  [{card}]", flush=True)
+    if rc != 0 or lines[-1] != "FAILS: 0" or not any(l.startswith("wrap ") for l in lines):
+        raise AssertionError(f"fuzz_sharded {' '.join(argv)}: exit code {rc}")
+    totals = {"K5": 0, "segreduce_xy": 0}
+    for line in lines:
+        if " launches K5=" in line:
+            k5, seg = line.split(" launches K5=")[1].split(" segreduce_xy=")
+            totals["K5"] += int(k5)
+            totals["segreduce_xy"] += int(seg.split()[0])
+    print(f"sharded fuzz launches in all: {totals}", flush=True)
+    hostile = phase_hostile(kernels, cfg, device)
+    for line in hostile:
+        print(line, flush=True)
+    print(f"sharded fuzz phase: {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    return {"fuzz": lines, "launches": totals, "hostile": hostile}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2215,6 +2352,7 @@ def main() -> int:
     phase_ladder(kernels, errs)
     phase_fuzz()
     phase_processes()
+    phase_sharded_fuzz(kernels)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {

@@ -61,7 +61,8 @@ def test_port_and_smoke_import_neither_jax_nor_foveax():
         "foveax_torch.cli.main", "foveax_torch.cli.stages",
         "foveax_torch.cli.ladder", "foveax_torch.scripts.stage_bench",
         "foveax_torch.scripts.fuzz_fused", "foveax_torch.scripts.two_process_demo",
-        "foveax_torch.scripts.soak",
+        "foveax_torch.scripts.soak", "foveax_torch.scripts.fuzz_sharded",
+        "foveax_torch.scripts.fuzz_native",
     ):
         assert name in report["modules"]
 
