@@ -183,6 +183,36 @@ Phases, each of which raises on failure (exit code 1):
    ValueError in the client with no kernel launched, and an ``unwarp_xy``
    launch after them must equal ``unwarp_xy_plain`` (tolerance 0).  The
    phase's wall time prints beside the card's name and power limit.
+15. Wide frames: past the 32,768 columns one K5 scanning block spans, K5
+   and K6 scan in column tiles, and past 35,888 columns (under the
+   reduced-size rule) a ``segreduce_xy`` block would need more shared
+   memory than the card has, so the fused sampler's contract refuses the
+   shape.  K5 on a random and an all-255 70000x256 frame (three tiles, the
+   last 4,464 columns; the all-255 sums wrap past 2^32) and at 36000x1024
+   (two tiles), in both layouts, against its plain version; the all-255
+   SATs at 70000x256 and 34560x512 against 255(y+1)(x+1) mod 2^32; K6 at
+   70000x256 with each gaze's row taps and at 36000x1024 with a pyc list
+   reaching row H-1, against its plain version (tolerance 0).  Then at
+   36000x18000 -> 20000x10000 ``FoveationPipeline`` "auto" must resolve
+   "sat": 4 chained gazes of ``foveate_chw`` then ``unwarp_auto_chw`` (K5
+   and ``unwarp_xy`` +4, every other kernel +0; the fovea of every
+   roundtrip equal to its source); every ``unwarp_xy`` output equal to
+   ``unwarp_xy_plain`` and within 1 LSB of the exact unwarp, a channel at
+   a time; the serve tick's SAT pair ``batch_pair("auto")`` on the first
+   frame with 2 gazes (K5 +1, nothing else; two gazes, because the plain
+   SAT sampler's row gathers hold about 23 GB a gaze here), its SAT equal
+   to the plain scan in 1,024-row blocks (each carried on from the block
+   above), its first row equal to the chained path's first reduced frame
+   and its second to the single-gaze sampler's on the same SAT; the first
+   reduced frame equal to ``sampler="direct"``'s.  The chained fps, a
+   ``torch.profiler`` kernel breakdown of one chained frame, K5's
+   ``ms``/``ms_queued`` beside its bytes bound and the peak tensor bytes
+   of the SAT path, the batch pair and the direct sampler print.  At
+   34560x17280 -> 19200x9600 (223,744 bytes a block) "auto" must resolve
+   "fused", ``sampler="sat"`` (K5 +1, in two tiles) and the fused sampler
+   (``segreduce_xy`` +1) give equal reduced frames at one gaze, and the
+   fused one equals ``segment_reduce_xy_batch_plain``.  The phase's wall
+   time prints beside the card's name and power limit.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from the
@@ -211,7 +241,8 @@ from foveax_torch.cli import main as cli
 from foveax_torch.core import direct as core_direct
 from foveax_torch.core import gnomonic, logpolar, metrics
 from foveax_torch.core import sample as core_sample
-from foveax_torch.core.logrect import make_point_grid
+from foveax_torch.config import reduced_dim
+from foveax_torch.core.logrect import make_grid, make_point_grid, scaled_center
 from foveax_torch.core.sat import build_sat
 from foveax_torch.core.svd_sat import compress_sat, sat_to_numpy
 from foveax_torch.core.unwarp import unwarp_rect
@@ -446,6 +477,10 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> 
             f"{name} {what}: kernel differs from its plain version by {err}"
         )
     return err
+
+
+def keep_max(errs, name: str, err: int) -> None:
+    errs[name] = max(errs.get(name, 0), err)
 
 
 def compare_extra(errs, name, fn, plain, cases, where: str) -> None:
@@ -1966,10 +2001,11 @@ def direct_timing(shape: str = "4k") -> list[dict]:
     return rows
 
 
-def direct_profile(fn, frame, c, shape: str, reps: int = 10) -> None:
-    """``torch.profiler`` over ``reps`` calls of the direct sampler: its
-    kernels per call, their device ms in all, and the six that take the
-    most of it."""
+def direct_profile(fn, frame, c, shape: str, reps: int = 10,
+                   what: str = "direct") -> None:
+    """``torch.profiler`` over ``reps`` calls of ``fn(frame, c)`` (the
+    direct sampler, unless ``what`` names another): its kernels per call,
+    their device ms in all, and the six that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1984,7 +2020,7 @@ def direct_profile(fn, frame, c, shape: str, reps: int = 10) -> None:
     total = sum(e.self_device_time_total for e in kernels) / reps / 1e3
     top = [(e.key[:70], e.count // reps, e.self_device_time_total / reps / 1e3)
            for e in kernels[:6]]
-    print(f"direct profile {shape}: {sum(e.count for e in kernels) // reps} "
+    print(f"{what} profile {shape}: {sum(e.count for e in kernels) // reps} "
           f"kernels, {total:.4f} device ms per call; top (name, launches, ms) "
           f"{json.dumps(top)}", flush=True)
 
@@ -2033,6 +2069,28 @@ def ladder_pipeline(w: int, h: int, device: str, sampler: str = "auto"):
     return pipe
 
 
+def unwarp_plain_check(errs, reduced, out, c, where: str) -> int:
+    """One ``unwarp_xy`` output against its plain version on the card and
+    the exact unwarp, a channel at a time (the exact unwarp's float32
+    corners of a whole 36000x18000 frame would hold about 31 GB); returns
+    the largest |out - exact|."""
+    _, h, w = out.shape
+    xv, yv = uw.fused_vectors(reduced.shape[1], reduced.shape[2], w, h, c)
+    worst = 0
+    for ch in range(3):
+        red, got = reduced[ch:ch + 1], out[ch:ch + 1]
+        keep_max(errs, "unwarp_xy", check_equal(
+            "unwarp_xy", got, uw.unwarp_xy_plain(red, xv, yv),
+            f"{where}, channel {ch}"))
+        exact = unwarp_rect(red, w, h, c, in_layout="chw", out_layout="chw")
+        worst = max(worst, max_abs_err(got, exact))
+        del exact
+    if worst > 1:
+        raise AssertionError(f"{where}: the restored frame is {worst} LSB off "
+                             "the exact unwarp")
+    return worst
+
+
 def ladder_plain(errs, pipe, kept, restored, centers) -> int:
     """Each chained frame's ``segreduce_xy`` and ``unwarp_xy`` output
     against its plain version on the card, and the restored frame against
@@ -2043,18 +2101,10 @@ def ladder_plain(errs, pipe, kept, restored, centers) -> int:
         pxc, pxmc, vx, pyc, pymc, vy = sr.fused_taps(pipe.grid, x, c[None])
         plain = sr.segment_reduce_xy_batch_plain(x, pxmc, pxc, vx, pymc, pyc, vy)
         where = f"at {w}x{h}, frame {i}"
-        errs["segreduce_xy"] = max(errs.get("segreduce_xy", 0), check_equal(
+        keep_max(errs, "segreduce_xy", check_equal(
             "segreduce_xy", reduced, plain[0], where))
         del plain
-        xv, yv = uw.fused_vectors(reduced.shape[1], reduced.shape[2], w, h, c)
-        errs["unwarp_xy"] = max(errs.get("unwarp_xy", 0), check_equal(
-            "unwarp_xy", out, uw.unwarp_xy_plain(reduced, xv, yv), where))
-        exact = unwarp_rect(reduced, w, h, c, in_layout="chw", out_layout="chw")
-        worst = max(worst, max_abs_err(out, exact))
-        del exact
-    if worst > 1:
-        raise AssertionError(f"{w}x{h}: a restored frame is {worst} LSB off the "
-                             "exact unwarp")
+        worst = max(worst, unwarp_plain_check(errs, reduced, out, c, where))
     return worst
 
 
@@ -2306,6 +2356,303 @@ def phase_sharded_fuzz(kernels=None, device: str = "cuda", fuzz=SHARDED_FUZZ,
     return {"fuzz": lines, "launches": totals, "hostile": hostile}
 
 
+# Phase 15: frames wider than one K5 scanning block spans (32,768 columns).
+# WIDE is past segment_reduce_xy's shared memory too (233,064 bytes a
+# block), so "auto" takes the SAT path there; WIDE_FUSED (223,744 bytes)
+# stays fused.  The reduced sizes are the configuration's rule.
+WIDE = (36000, 18000)        # -> 20000x10000
+WIDE_FUSED = (34560, 17280)  # -> 19200x9600
+WIDE_FRAMES = 4
+WIDE_BLOCK_ROWS = 1024  # rows a block of the plain SAT check scans
+WIDE_BATCH = 2  # gazes of the SAT batch pair at WIDE
+TILED = (70000, 256)  # three K5 tiles, the last 4,464 columns
+
+
+def wide_kernels(errs) -> None:
+    """K5 and K6 over column tiles against their plain versions, and
+    all-255 SATs against their closed form (module docstring, phase
+    15)."""
+
+    def sat_check(what: str, chw) -> None:
+        want = scan2d.sat_scan_plain(chw)
+        for layout in ("chw", "hwc"):
+            frame = chw if layout == "chw" else chw.permute(1, 2, 0).contiguous()
+            got = scan2d.sat_scan(frame, in_layout=layout)
+            keep_max(errs, "sat_build", check_equal("sat_build", got, want,
+                                                    f"{what} {layout}"))
+
+    def closed_form(w: int, h: int) -> None:
+        sat = scan2d.sat_scan(sat_frame(w, h, 255, "cuda"), in_layout="chw")
+        ys = torch.arange(1, h + 1, dtype=torch.int64, device="cuda")
+        xs = torch.arange(1, w + 1, dtype=torch.int64, device="cuda")
+        closed = (255 * ys[:, None] * xs[None, :]) & scan2d.MASK32
+        if not all(torch.equal(scan2d.as_int64(sat[c]), closed) for c in range(3)):
+            raise AssertionError(f"sat_build all-255 {w}x{h}: differs from "
+                                 "255(y+1)(x+1) mod 2^32")
+
+    def select_check(what: str, rcw, pyc, pymc) -> None:
+        got = fs.sat_select_rows(rcw, pyc, pymc)
+        for part, g, w_ in zip(("hi", "lo"), got, fs.sat_select_rows_plain(rcw, pyc, pymc)):
+            keep_max(errs, "sat_select_rows",
+                     check_equal("sat_select_rows", g, w_, f"{what} {part}"))
+
+    w, h = TILED
+    tiles = scan2d.sat_plan(h, w).tiles
+    sat_check(f"{w}x{h} ({tiles} tiles)", sat_frame(w, h, None, "cuda"))
+    sat_check(f"{w}x{h} all-255 ({tiles} tiles)", sat_frame(w, h, 255, "cuda"))
+    sat_check("36000x1024", sat_frame(36000, 1024, None, "cuda"))
+    for cw, ch in (TILED, (34560, 512)):
+        closed_form(cw, ch)
+    print(f"wide sat_build: random and all-255 {w}x{h} ({tiles} tiles), "
+          "36000x1024 (2 tiles), both layouts, bit-equal to the plain "
+          f"version; all-255 {w}x{h} and 34560x512 (255*W*H = "
+          f"{255 * w * h} and {255 * 34560 * 512}) equal to 255(y+1)(x+1) "
+          "mod 2^32", flush=True)
+
+    grid = make_grid(reduced_dim(w), reduced_dim(h), w, h, "cuda")
+    rcw = sat_frame(w, h, None, "cuda").permute(1, 0, 2).contiguous()
+    for g in GAZES:
+        c = torch.tensor([g], dtype=torch.float32, device="cuda")
+        # the sampler's row taps (fused_taps refuses this width)
+        pyc, pymc, _ = core_sample._axis_taps(
+            grid.gy, scaled_center(c, w, h)[1][:, None], h, wrap=False)
+        select_check(f"{w}x{h} gaze {g}", rcw, pyc[0], pymc[0])
+    h = 1024
+    rcw = sat_frame(36000, h, None, "cuda").permute(1, 0, 2).contiguous()
+    pyc, pymc = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in (
+        [1, 2, h // 2, h // 2, h - 1], [0, 1, 3, h // 2 - 1, h - 40]))
+    select_check("36000x1024, pyc to H-1", rcw, pyc, pymc)
+    print(f"wide sat_select_rows: {w}x{TILED[1]} with {len(GAZES)} gazes' row "
+          "taps, 36000x1024 with pyc reaching H-1, bit-equal to the plain "
+          "version", flush=True)
+
+
+def wide_frame(w: int, h: int, device: str, seed: int) -> torch.Tensor:
+    """A random (3, H, W) uint8 frame made on ``device`` from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, 256, (3, h, w), dtype=torch.uint8, device=device,
+                         generator=gen)
+
+
+def wide_sat_check(frame, sat, block_rows: int) -> int:
+    """K5's SAT of ``frame`` against the plain scan in row blocks, each
+    block's int64 sums carried on from the block above (one int64 scan of
+    the whole frame would need about 16 GB more)."""
+    _, h, w = frame.shape
+    carry = torch.zeros((3, 1, w), dtype=torch.int64, device=frame.device)
+    err = 0
+    for r0 in range(0, h, block_rows):
+        block = frame[:, r0:r0 + block_rows].to(torch.int64).cumsum(2).cumsum(1)
+        block += carry
+        err = max(err, check_equal("sat_build", sat[:, r0:r0 + block_rows],
+                                   scan2d.low32(block), f"at {w}x{h}, rows from {r0}"))
+        carry = block[:, -1:]
+        del block
+    return err
+
+
+def wide_chain_fps(pipe, frame, centers) -> tuple[float, int]:
+    """Chained frames per second over ``centers`` (host clock,
+    synchronised; median of three runs) and the peak bytes tensors held
+    meanwhile, the frame included."""
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = frame
+        for c in centers:
+            y = pipe.unwarp_auto_chw(pipe.foveate_chw(y, c), c)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del y
+    return len(centers) / statistics.median(times), torch.cuda.max_memory_allocated()
+
+
+def wide_k5_timing(frame) -> dict:
+    """K5 on ``frame`` (chw): ``ms`` and ``ms_queued`` as phase 4 (median
+    of 10, L2 flushed) beside the bytes bound: the frame read once and the
+    uint32 SAT written once."""
+    _, h, w = frame.shape
+    flush = torch.empty(2**27, dtype=torch.uint8, device=frame.device)
+    spin = spin_cycles(SPIN_MS)
+    fn = lambda f: scan2d.sat_scan(f, in_layout="chw")  # noqa: E731
+    nbytes, ops = 5 * frame.numel(), 2 * frame.numel()
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    plan = scan2d.sat_plan(h, w)
+    return {
+        "name": "sat_build", "shape": f"{w}x{h}", "tiles": plan.tiles,
+        "cuda_launches": plan.launches,
+        "ms": time_cuda(fn, (frame,), 10, flush),
+        "ms_queued": time_cuda(fn, (frame,), 10, flush, spin),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "ops": ops,
+    }
+
+
+def wide_batch_pair(kernels, pipe, frame, centers, reduced0, block_rows: int):
+    """The serve tick's SAT pair ``batch_pair("auto")`` on ``frame`` with
+    :data:`WIDE_BATCH` gazes: K5 once and nothing else, its SAT equal to
+    the row-blocked plain scan, row 0 equal to ``reduced0`` (the chained
+    path's first reduced frame) and each row equal to the single-gaze
+    sampler's on the same SAT.  Returns the launches and the peak tensor
+    bytes of the pair (None off the card)."""
+    prepare, sample_batch = pipe.batch_pair("auto")
+    if prepare != pipe.build_sat:
+        raise AssertionError("batch_pair('auto'): not the SAT pair")
+    hwc = frame.permute(1, 2, 0).contiguous()
+    cs = torch.stack(centers[:WIDE_BATCH])
+    if kernels:
+        zero_counts(kernels)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sat = prepare(hwc)
+    batch = sample_batch(sat, cs)
+    launches = read_counts(kernels) if kernels else {}
+    peak = torch.cuda.max_memory_allocated() if kernels else None
+    if kernels:
+        expect_counts("wide batch pair", launches, {"sat_build": 1})
+    del hwc
+    err = wide_sat_check(frame, sat, block_rows)
+    if not torch.equal(batch[0], reduced0.permute(1, 2, 0)):
+        raise AssertionError("wide batch pair: row 0 differs from the chained "
+                             "path's reduced frame")
+    for i, c in enumerate(cs):
+        if not torch.equal(batch[i], pipe.sample(sat, c)):
+            raise AssertionError(f"wide batch pair: row {i} differs from the "
+                                 "single-gaze sampler's")
+    return launches, peak, err
+
+
+def wide_paths(kernels, errs, heights=(WIDE[1], WIDE_FUSED[1]),
+               device: str = "cuda", block_rows: int = WIDE_BLOCK_ROWS) -> dict:
+    """The SAT path at WIDE's width over :data:`WIDE_FRAMES` chained gazes
+    with every unwarp held to its plain version and the exact unwarp, the
+    SAT batch pair, the direct sampler; then WIDE_FUSED's SAT and fused
+    samplers at one gaze against each other and the plain fused sampler
+    (module docstring, phase 15).  ``heights`` cut the two frames' rows
+    for a rehearsal on the CPU, where ``kernels`` is None and nothing is
+    timed."""
+    report = {}
+    card = device != "cpu"
+    w, h = WIDE[0], heights[0]
+    cfg = FoveaxConfig().with_source(w, h)
+    pipe = FoveationPipeline(cfg, device=device)
+    if pipe.sampler != "sat":
+        raise AssertionError(f"{w}x{h}: auto resolved to {pipe.sampler}, not sat")
+    frame = wide_frame(w, h, device, SEED + 7)
+    gazes = gaze_trace(WIDE_FRAMES)
+    centers = [torch.from_numpy(g).to(device) for g in gazes]
+    if kernels:
+        zero_counts(kernels)
+    last, fovea_ok, kept = run_main_path(pipe, frame, gazes, centers, keep=True)
+    launches = read_counts(kernels) if kernels else {}
+    if kernels:
+        expect_counts(f"wide sat {w}x{h}", launches,
+                      {"sat_build": WIDE_FRAMES, "unwarp_xy": WIDE_FRAMES})
+    if last.shape != frame.shape or not bool(fovea_ok.all()):
+        raise AssertionError(f"wide sat {w}x{h}: restored {tuple(last.shape)}, "
+                             f"fovea exact {fovea_ok.tolist()}")
+    reduced = [r for _, r in kept]
+    restored = [x for x, _ in kept[1:]] + [last]
+    del kept, last
+    worst = 0
+    for i, (red, out, c) in enumerate(zip(reduced, restored, centers)):
+        worst = max(worst, unwarp_plain_check(errs, red, out, c,
+                                              f"at {w}x{h}, frame {i}"))
+    del restored, reduced[1:]
+    if card:
+        torch.cuda.empty_cache()
+    batch, batch_peak, err = wide_batch_pair(kernels, pipe, frame, centers,
+                                             reduced[0], block_rows)
+    keep_max(errs, "sat_build", err)
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    direct = FoveationPipeline(cfg, sampler="direct", device=device)
+    if not torch.equal(direct.foveate_chw(frame, centers[0]), reduced[0]):
+        raise AssertionError(f"wide sat {w}x{h}: reduced frame differs from "
+                             "the direct sampler's")
+    hr, wr, _ = pipe.reduced_shape
+    print(f"wide {w}x{h} -> {wr}x{hr}: auto -> sat, {WIDE_FRAMES} chained "
+          f"frames, launches {launches}, fovea exact, every unwarp_xy output "
+          f"equal to its plain version and within {worst} LSB of the exact "
+          f"unwarp; batch_pair('auto') with {WIDE_BATCH} gazes launches "
+          f"{batch}, its SAT equal to the plain scan in {block_rows}-row "
+          "blocks, its rows equal to the chained and single-gaze reduced "
+          "frames; first reduced frame equal to the direct sampler's",
+          flush=True)
+    report.update(sat=launches, batch=batch)
+    if card:
+        direct_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        fps, sat_peak = wide_chain_fps(pipe, frame, centers)
+        torch.cuda.empty_cache()
+        step = lambda f, c: pipe.unwarp_auto_chw(pipe.foveate_chw(f, c), c)  # noqa: E731
+        direct_profile(step, frame, centers[0], f"{w}x{h}", reps=3,
+                       what="wide sat path frame")
+        torch.cuda.empty_cache()
+        k5 = wide_k5_timing(frame)
+        line = card_line()
+        print(f"wide path sat {w}x{h}: {fps:.3f} fps ({1e3 / fps:.4f} ms/frame, "
+              f"{WIDE_FRAMES} chained frames); peak tensor bytes: SAT path "
+              f"{sat_peak}, batch pair ({WIDE_BATCH} gazes) {batch_peak}, direct "
+              f"sampler (one gaze) {direct_peak}  [{line}]", flush=True)
+        print(f"wide timing: {json.dumps(k5)}  [{line}]", flush=True)
+        report.update(fps=fps, sat_peak=sat_peak, batch_peak=batch_peak,
+                      direct_peak=direct_peak, k5=k5)
+    del frame, reduced
+    if card:
+        torch.cuda.empty_cache()
+
+    w, h = WIDE_FUSED[0], heights[1]
+    cfg = FoveaxConfig().with_source(w, h)
+    fused = FoveationPipeline(cfg, device=device)
+    if fused.sampler != "fused":
+        raise AssertionError(f"{w}x{h}: auto resolved to {fused.sampler}, not fused")
+    sat_pipe = FoveationPipeline(cfg, sampler="sat", device=device)
+    frame = wide_frame(w, h, device, SEED + 8)
+    runs = {}
+    for name, p in (("sat", sat_pipe), ("fused", fused)):
+        if kernels:
+            zero_counts(kernels)
+        out = p.foveate_chw(frame, centers[0])
+        runs[name] = (out, read_counts(kernels) if kernels else {})
+        if kernels:
+            expect_counts(f"wide {name} {w}x{h}", runs[name][1],
+                          {PATH_KERNELS[name][0]: 1})
+    if not torch.equal(runs["sat"][0], runs["fused"][0]):
+        raise AssertionError(f"wide {w}x{h}: the SAT path differs from the fused path")
+    if card:
+        torch.cuda.empty_cache()
+    pxc, pxmc, vx, pyc, pymc, vy = sr.fused_taps(fused.grid, frame, centers[0][None])
+    keep_max(errs, "segreduce_xy", check_equal(
+        "segreduce_xy", runs["fused"][0],
+        sr.segment_reduce_xy_batch_plain(frame, pxmc, pxc, vx, pymc, pyc, vy)[0],
+        f"at {w}x{h}"))
+    print(f"wide {w}x{h}: auto -> fused ({sr.xy_shared_bytes(w, cfg.reduced_width)} "
+          f"bytes of shared memory a block), sat launches {runs['sat'][1]} "
+          f"({scan2d.sat_plan(h, w).tiles} K5 tiles), fused launches "
+          f"{runs['fused'][1]}, reduced frames equal, segreduce_xy equal to "
+          "its plain version", flush=True)
+    report["fused"] = {name: r[1] for name, r in runs.items()}
+    return report
+
+
+def phase_wide(kernels, errs) -> dict:
+    """Frames wider than one K5 scanning block spans (module docstring,
+    phase 15)."""
+    t0 = time.perf_counter()
+    wide_kernels(errs)
+    torch.cuda.empty_cache()
+    report = wide_paths(kernels, errs)
+    torch.cuda.empty_cache()
+    print(f"wide phase: {time.perf_counter() - t0:.1f} s  [{card_line()}]", flush=True)
+    return report
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2353,6 +2700,7 @@ def main() -> int:
     phase_fuzz()
     phase_processes()
     phase_sharded_fuzz(kernels)
+    phase_wide(kernels, errs)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [
         {

@@ -39,7 +39,8 @@
 //      band), channel fastest so that the three blocks of a band read the
 //      same bytes at about the same time (in "hwc" they share every 48-byte
 //      window through L2).  Its threads own K adjacent 16-column chunks each
-//      (K = 1 up to W = 8192, so a block spans the whole row) and start from
+//      (K = 1 up to W = 8192, so a block spans the whole row, or its
+//      column tile past 32,768 columns: see below) and start from
 //      the band's carry: their column prefix (the column sums down to the
 //      row above).  The block walks its rows in steps of S rows (S = 8 / K,
 //      4 / K for "hwc"), each step's loads in registers:
@@ -54,6 +55,18 @@
 //           16-byte stores, 512 contiguous bytes a warp instruction.
 //   K6 only: 4. dup_fill_kernel copies each row that a list repeats (see
 //      there).
+// Column tiles.  A scanning block spans at most 512 threads x 4 chunks x 16
+// = 32,768 columns, so a wider row is cut into column tiles of kTile
+// columns (a multiple of 16, so that every tile start keeps the alignment
+// of its row start; the last tile ragged).  Phases 1 and 2
+// are per column and cover the whole width once; phase 3 runs once per
+// tile, in order on the stream.  In a tile that starts at column x0 > 0 a
+// row's running offset starts from the SAT word out[c, y, x0 - 1] (K6:
+// that word of the selected row), which the tile before it wrote: SAT[y,
+// x] = SAT[y, x0 - 1] + the sum over x0 <= x' <= x of the column prefix at
+// x', all mod 2^32.  Each tile is a programmatic dependent of the one
+// before it and reads that word after griddepcontrol.wait.  One C call
+// launches every tile.
 // Phases 2 to 4 are programmatic dependent launches: each starts while the
 // one before it runs and waits for it with griddepcontrol.wait, so launch
 // gaps, K6's list searches and a scanning block's first frame loads
@@ -80,6 +93,9 @@ namespace {
 constexpr int kChunk = 16;  // columns a thread owns per chunk
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
+// Columns of a column tile: what a scanning block of kMaxThreads threads x
+// 4 chunks spans (kernels/scan2d.py::MAX_WIDTH).
+constexpr int kTile = kMaxThreads * 4 * kChunk;
 constexpr int kTotalsThreads = 128;
 constexpr int kTotalsRows = 8;  // rows of loads phase 1 has in flight
 constexpr int kCarryThreads = 256;
@@ -373,7 +389,7 @@ __device__ __forceinline__ void store_segment(uint32_t* dst,
 
 // Where K5 puts its rows: every row of the band, into the SAT.
 struct SatSink {
-  uint32_t* plane;  // out + c * h * w
+  uint32_t* plane;  // out + c * h * w + the tile's first column
   int w;
   __device__ int count(int) const { return 1; }
   __device__ uint32_t* dst(int r, int) const {
@@ -388,8 +404,8 @@ struct SatSink {
 struct SelectSink {
   const int* hs;
   const int* ls;
-  uint32_t* hi;  // sel + c * w: row j at hi + j * row
-  uint32_t* lo;  // sel + (n * 3 + c) * w
+  uint32_t* hi;  // sel + c * w + x0: row j at hi + j * row
+  uint32_t* lo;  // sel + (n * 3 + c) * w + x0
   ptrdiff_t row;
   int r0;
   __device__ int count(int r) const {
@@ -402,13 +418,16 @@ struct SelectSink {
   }
 };
 
-// Phase 3 for rows [r0, r_end) of channel c: see the design note.  carry
-// is the band's column prefix (nullptr for the first band); smem the
+// Phase 3 for rows [r0, r_end) of channel c over one column tile of w
+// columns: see the design note.  frame, carry and the sink's rows start at
+// the tile's first column; carry is the band's column prefix (nullptr for
+// the first band); with `left`, each row's offset starts from the SAT word
+// just left of the tile (the sink's row at column -1).  smem is the
 // block's dynamic shared memory (shared_words).
 template <int XS, int K, class Sink>
 __device__ __forceinline__ void band_scan(
     const uint8_t* __restrict__ frame, int c_stride, int r_stride, int c,
-    const uint32_t* carry, int r0, int r_end, int w,
+    const uint32_t* carry, int r0, int r_end, int w, bool left,
     uint32_t* smem, const Sink& sink) {
   constexpr int S = step_rows(XS, K);
   uint32_t* s_tot = smem;  // [2][S][kMaxWarps]
@@ -465,6 +484,14 @@ __device__ __forceinline__ void band_scan(
         }
       }
     }
+    // The left tile's last SAT word of each row that is written, loaded
+    // after the wait (the previous tile wrote it), used in b.
+    uint32_t lc[S];
+#pragma unroll
+    for (int u = 0; u < S; ++u)
+      lc[u] = left && r + u < r_end && sink.count(r + u) > 0
+                  ? load_after(sink.dst(r + u, 0) - 1)
+                  : 0u;
     // a. Per row: this thread's total, its warp-inclusive scan, the warp
     // totals into shared memory, then the block-exclusive offset.
     uint32_t off[S];
@@ -502,7 +529,7 @@ __device__ __forceinline__ void band_scan(
       for (int q = 0; q < K; ++q) add_bytes(col + q * kChunk, v[u][q]);
       const int n = r + u < r_end ? sink.count(r + u) : 0;  // uniform
       if (n == 0) continue;
-      uint32_t run = off[u];
+      uint32_t run = off[u] + lc[u];
 #pragma unroll
       for (int q = 0; q < K; ++q) {
         uint32_t* s = s_buf + (lane * K + q) * kPad;
@@ -525,30 +552,33 @@ __device__ __forceinline__ void band_scan(
   }
 }
 
-// K5 phase 3. grid: (3 * nb,), channel fastest.
+// K5 phase 3 over the column tile [x0, x0 + tw). grid: (3 * nb,), channel
+// fastest.
 template <int XS, int K>
 __global__ void __launch_bounds__(kMaxThreads) sat_band_kernel(
     const uint8_t* __restrict__ frame, int c_stride, int r_stride,
     const uint32_t* totals, uint32_t* __restrict__ out, int h,
-    int w, int wp, int band_rows) {
+    int w, int wp, int band_rows, int x0, int tw) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int c = blockIdx.x % 3;
   const int b = blockIdx.x / 3;
   const int nb1 = (h + band_rows - 1) / band_rows - 1;
   const int r0 = b * band_rows;
   const uint32_t* carry =
-      b > 0 ? totals + ((ptrdiff_t)c * nb1 + b - 1) * wp : nullptr;
-  const SatSink sink{out + (ptrdiff_t)c * h * w, w};
-  band_scan<XS, K>(frame, c_stride, r_stride, c, carry, r0,
-                   min(r0 + band_rows, h), w, smem, sink);
+      b > 0 ? totals + ((ptrdiff_t)c * nb1 + b - 1) * wp + x0 : nullptr;
+  const SatSink sink{out + (ptrdiff_t)c * h * w + x0, w};
+  band_scan<XS, K>(frame + (ptrdiff_t)XS * x0, c_stride, r_stride, c, carry,
+                   r0, min(r0 + band_rows, h), tw, x0 > 0, smem, sink);
 }
 
-// K6 phase 3. grid: (3 * nb,), channel fastest.  sel (2, n, 3, w).
+// K6 phase 3 over the column tile [x0, x0 + tw). grid: (3 * nb,), channel
+// fastest.  sel (2, n, 3, w).
 template <int K>
 __global__ void __launch_bounds__(kMaxThreads) select_band_kernel(
     const uint8_t* __restrict__ frame, const int32_t* __restrict__ pyc,
     const int32_t* __restrict__ pymc, const uint32_t* totals,
-    uint32_t* __restrict__ sel, int h, int w, int wp, int n, int band_rows) {
+    uint32_t* __restrict__ sel, int h, int w, int wp, int n, int band_rows,
+    int x0, int tw) {
   let_next_start();
   extern __shared__ __align__(16) uint32_t smem[];
   const int c = blockIdx.x % 3;
@@ -588,20 +618,21 @@ __global__ void __launch_bounds__(kMaxThreads) select_band_kernel(
     for (int row = prev + 1; row <= pymc[j]; ++row) ls[row - r0] = j;
   }
   __syncthreads();
-  const SelectSink sink{hs, ls, sel + (ptrdiff_t)c * w,
-                        sel + ((ptrdiff_t)n * 3 + c) * w, 3 * (ptrdiff_t)w,
-                        r0};
+  const SelectSink sink{hs, ls, sel + (ptrdiff_t)c * w + x0,
+                        sel + ((ptrdiff_t)n * 3 + c) * w + x0,
+                        3 * (ptrdiff_t)w, r0};
   const uint32_t* carry =
-      b > 0 ? totals + ((ptrdiff_t)c * nb1 + b - 1) * wp : nullptr;
-  band_scan<1, K>(frame, w, 3 * w, c, carry, r0, last + 1, w, smem, sink);
+      b > 0 ? totals + ((ptrdiff_t)c * nb1 + b - 1) * wp + x0 : nullptr;
+  band_scan<1, K>(frame + x0, w, 3 * w, c, carry, r0, last + 1, tw, x0 > 0,
+                  smem, sink);
 }
 
-// K6 phase 4. grid: (2 * n,).  Entry j of a list (pyc for j < n, then
-// pymc) whose row is that of the entry before it copies the first entry of
-// its run, which phase 3 wrote: (3, w) contiguous words.  A run of equal
-// rows (the clamped rows 0, 1, H-2 and H-1 of a gaze near the frame's edge
-// repeat hundreds of times) so spreads over many blocks instead of holding
-// back the one that scans its band.
+// K6 phase 4, after the last tile. grid: (2 * n,).  Entry j of a list (pyc
+// for j < n, then pymc) whose row is that of the entry before it copies
+// the first entry of its run, which phase 3 wrote: (3, w) contiguous
+// words.  A run of equal rows (the clamped rows 0, 1, H-2 and H-1 of a
+// gaze near the frame's edge repeat hundreds of times) so spreads over many
+// blocks instead of holding back the one that scans its band.
 __global__ void __launch_bounds__(kCarryThreads) dup_fill_kernel(
     const int32_t* __restrict__ pyc, const int32_t* __restrict__ pymc,
     uint32_t* sel, int w, int n) {
@@ -687,8 +718,11 @@ cudaError_t launch_sat(const uint8_t* frame, int c_stride, int r_stride,
   err = allow_shared(sat_band_kernel<XS, K>, smem);
   if (err != cudaSuccess) return err;
   const int nb = (h + band_rows - 1) / band_rows;
-  return launch(nb > 1, sat_band_kernel<XS, K>, 3 * nb, threads, smem, s,
-                frame, c_stride, r_stride, totals, out, h, w, wp, band_rows);
+  for (int x0 = 0; x0 < w && err == cudaSuccess; x0 += kTile)
+    err = launch(nb > 1 || x0 > 0, sat_band_kernel<XS, K>, 3 * nb, threads,
+                 smem, s, frame, c_stride, r_stride, totals, out, h, w, wp,
+                 band_rows, x0, w - x0 < kTile ? w - x0 : kTile);
+  return err;
 }
 
 template <int K>
@@ -703,20 +737,23 @@ cudaError_t launch_select(const uint8_t* frame, const int32_t* pyc,
   err = allow_shared(select_band_kernel<K>, smem);
   if (err != cudaSuccess) return err;
   const int nb = (h + band_rows - 1) / band_rows;
-  err = launch(nb > 1, select_band_kernel<K>, 3 * nb, threads, smem, s, frame,
-               pyc, pymc, totals, sel, h, w, wp, n, band_rows);
+  for (int x0 = 0; x0 < w && err == cudaSuccess; x0 += kTile)
+    err = launch(nb > 1 || x0 > 0, select_band_kernel<K>, 3 * nb, threads,
+                 smem, s, frame, pyc, pymc, totals, sel, h, w, wp, n,
+                 band_rows, x0, w - x0 < kTile ? w - x0 : kTile);
   if (err != cudaSuccess) return err;
   return launch(true, dup_fill_kernel, 2 * n, kCarryThreads, 0, s, pyc, pymc,
                 sel, w, n);
 }
 
 // The launch plan the wrapper passed (kernels/scan2d.py::sat_plan): K
-// chunks a thread, `threads` a block covering the row, shared memory
-// within the card's 232,448 bytes.
+// chunks a thread, `threads` a block covering a column tile, shared memory
+// within the card's 232,448 bytes, phase 1's grid rows within 65,535.
 bool plan_ok(int h, int w, int band_rows, int threads, int k) {
   return h >= 1 && w >= 1 && band_rows >= 1 && (k == 1 || k == 2 || k == 4) &&
          threads >= 32 && threads <= kMaxThreads && threads % 32 == 0 &&
-         (long long)threads * k * kChunk >= w &&
+         (long long)threads * k * kChunk >= (w < kTile ? w : kTile) &&
+         3LL * ((h + band_rows - 1) / band_rows) <= 65535 &&
          4LL * shared_words(1, k, threads, band_rows) <= 232448;
 }
 
@@ -725,7 +762,8 @@ bool plan_ok(int h, int w, int band_rows, int threads, int k) {
 // frame: uint8 with strides (c_stride, r_stride, x_stride), x_stride 1
 // ("chw") or 3 with c_stride 1 ("hwc"); out (3, h, w) uint32; totals
 // scratch of 3 * (ceil(h / band_rows) - 1) * wp uint32, wp = w rounded up
-// to 16, 16-byte aligned.  Up to three launches.
+// to 16, 16-byte aligned.  Two launches (none for one band), then one a
+// column tile.
 extern "C" int fvx_sat_build(const void* frame, int c_stride, int r_stride,
                              int x_stride, void* out, void* totals, int h,
                              int w, int band_rows, int threads, int k,
@@ -758,7 +796,8 @@ extern "C" int fvx_sat_build(const void* frame, int c_stride, int r_stride,
 }
 
 // frame (h, 3, w) uint8; pyc, pymc (n,) int32, n >= 1; sel (2, n, 3, w)
-// uint32; totals as for fvx_sat_build.  Up to three launches.
+// uint32; totals as for fvx_sat_build.  Two launches (none for one band),
+// one a column tile, then the copy of repeated rows.
 extern "C" int fvx_sat_select_rows(const void* frame, const void* pyc,
                                    const void* pymc, void* sel, void* totals,
                                    int h, int w, int n, int band_rows,

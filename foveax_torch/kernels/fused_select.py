@@ -16,7 +16,8 @@ wrapper does not check that on the device, which would cost a
 synchronisation).  The kernel
 scans only the bands up to ``max(pyc[-1], pymc[-1])`` that hold a listed
 row, writes each listed row once and copies it to the rest of its run of
-duplicates in a fourth launch.  The plain version, which the CPU runs,
+duplicates in a last launch; past ``MAX_WIDTH`` columns it scans in
+column tiles as K5 does.  The plain version, which the CPU runs,
 does not need the order.
 """
 

@@ -5,11 +5,13 @@ PyTorch twin.
 K5, :func:`sat_scan` (replaces ``scan2d.py:_sat_kernel`` via
 ``build_sat_pallas``): a (H, W, 3) or (3, H, W) uint8 frame -> the (3, H,
 W) inclusive SAT mod 2^32, stored as ``torch.uint32`` (the JAX package's
-dtype and bits).  Unlike the TPU kernel it takes any H and W up to
-:data:`MAX_WIDTH`: there is no 128-lane or 8-row block constraint.  The
-kernel works by row bands (band totals, their carry down the bands, then
-one scan per band that writes the SAT once); :func:`sat_plan` lays out
-its launch, and K6 (``kernels/fused_select.py``) shares it.
+dtype and bits).  Unlike the TPU kernel it takes any H and W: there is no
+128-lane or 8-row block constraint.  The kernel works by row bands (band
+totals, their carry down the bands, then one scan per band that writes the
+SAT once), and past :data:`MAX_WIDTH` columns, which one scanning block
+spans, its scan runs once per column tile, each starting from the last
+SAT column of the tile before it; :func:`sat_plan` lays out its launch,
+and K6 (``kernels/fused_select.py``) shares it.
 
 PyTorch stores ``uint32`` but does little arithmetic on it, and int32
 arithmetic would wrap at 2^31, which the sums of a bright frame a little
@@ -40,6 +42,7 @@ BAND_ROWS = 32
 CHUNK = 16          # columns a thread owns per chunk
 MAX_THREADS = 512   # threads of a scanning block, which spans the row
 MAX_CHUNKS_PER_THREAD = 4
+# Columns a scanning block spans; a wider row is scanned in column tiles.
 MAX_WIDTH = MAX_THREADS * MAX_CHUNKS_PER_THREAD * CHUNK  # 32,768
 # Shared memory a block may use on the card (H100: 227 KB).
 MAX_SHARED_BYTES = 232_448
@@ -50,24 +53,23 @@ class SatPlan(NamedTuple):
 
     band_rows: int
     chunks_per_thread: int
-    threads: int
+    threads: int  # a scanning block's, spanning one column tile
     step_rows: int  # rows a scanning step keeps in registers
     scratch_words: int  # uint32 band totals, (3, bands - 1, W padded to 16)
     shared_bytes: int  # dynamic shared memory of a scanning block
     launches: int  # CUDA launches a K5 call makes (K6: one more)
+    tiles: int  # column tiles of MAX_WIDTH columns (the last one ragged)
 
 
 def sat_plan(h: int, w: int, *, column_stride: int = 1) -> SatPlan:
     """The launch plan for an H x W frame whose columns lie
     ``column_stride`` bytes apart (1 for planes, 3 for interleaved
-    pixels), as ``csrc/scan2d.cu`` lays it out.  Raises ValueError, naming
-    the width, for a frame wider than a block can span."""
-    if not 1 <= w <= MAX_WIDTH:
-        raise ValueError(
-            f"SAT kernels: frame width {w} is outside what a scanning block "
-            f"spans: 1 to {MAX_WIDTH} columns"
-        )
-    chunks = -(-w // CHUNK)
+    pixels), as ``csrc/scan2d.cu`` lays it out: the row is cut into column
+    tiles of :data:`MAX_WIDTH` columns."""
+    if h < 1 or w < 1:
+        raise ValueError(f"SAT kernels: empty {w}x{h} frame")
+    tiles = -(-w // MAX_WIDTH)
+    chunks = -(-min(w, MAX_WIDTH) // CHUNK)
     k = 1
     while chunks > k * MAX_THREADS:
         k *= 2
@@ -80,8 +82,9 @@ def sat_plan(h: int, w: int, *, column_stride: int = 1) -> SatPlan:
                   + 2 * (BAND_ROWS + 1))
     return SatPlan(
         band_rows=BAND_ROWS, chunks_per_thread=k, threads=threads,
-        step_rows=step, scratch_words=3 * (bands - 1) * chunks * CHUNK,
-        shared_bytes=shared, launches=1 if bands == 1 else 3,
+        step_rows=step, scratch_words=3 * (bands - 1) * -(-w // CHUNK) * CHUNK,
+        shared_bytes=shared, launches=(0 if bands == 1 else 2) + tiles,
+        tiles=tiles,
     )
 
 
@@ -120,6 +123,10 @@ def sat_scan(frame: torch.Tensor, *, in_layout: str = "hwc") -> torch.Tensor:
     out = torch.empty((3, h, w), dtype=torch.uint32, device=frame.device)
     if out.numel():
         c_stride, r_stride, x_stride = chw.stride()
+        if max(c_stride, r_stride) >= 2**31:
+            raise ValueError(
+                f"frame: strides {chw.stride()} do not fit the kernel's int"
+            )
         plan = sat_plan(h, w, column_stride=x_stride)
         totals = torch.empty(
             plan.scratch_words, dtype=torch.uint32, device=frame.device

@@ -225,10 +225,15 @@ def segment_reduce_xy_batch(
 
 
 def fused_eligible(grid: LogRectGrid) -> bool:
-    """The fused sampler's structural contract: every row interval's sum
-    of uint8 pixels fits the uint16 row sums, 255 * max(dy) < 2^16 (the
-    bound the JAX package's y pass relies on too)."""
-    return 255 * grid.max_dy < 2**16
+    """The fused sampler's contract: every row interval's sum of uint8
+    pixels fits the uint16 row sums, 255 * max(dy) < 2^16 (the bound the
+    JAX package's y pass relies on too), and a ``segment_reduce_xy`` block
+    fits the card's shared memory (:func:`xy_shared_bytes`; under the
+    reduced-size rule up to 35,888 source columns).  Host arithmetic on
+    the grid's own fields: the same on every device."""
+    return (255 * grid.max_dy < 2**16
+            and xy_shared_bytes(grid.source_width, grid.out_width)
+            <= MAX_SHARED_BYTES)
 
 
 def fused_taps(grid: LogRectGrid, frame: torch.Tensor, centers: torch.Tensor,
@@ -239,8 +244,12 @@ def fused_taps(grid: LogRectGrid, frame: torch.Tensor, centers: torch.Tensor,
     outside the fused sampler's contract."""
     if not fused_eligible(grid):
         raise ValueError(
-            f"fused sampler: row step {grid.max_dy} overflows the uint16 "
-            "row sums (needs 255 * max(dy) < 2^16)"
+            f"fused sampler: outside its contract, which needs row step "
+            f"{grid.max_dy} to fit the uint16 row sums (255 * max(dy) < "
+            f"2^16) and source width {grid.source_width} and output width "
+            f"{grid.out_width} to need at most {MAX_SHARED_BYTES} bytes of "
+            f"shared memory per segment_reduce_xy block (they need "
+            f"{xy_shared_bytes(grid.source_width, grid.out_width)} bytes)"
         )
     _, hs, ws = frame.shape
     cx, cy = scaled_center(centers, ws, hs)  # (N,)

@@ -25,10 +25,12 @@ sampler of :mod:`foveax_torch.core.direct`, plain PyTorch, exact at every
 shape) or "auto": fused where the shape is inside the fused sampler's
 contract, SAT otherwise, on every device (never direct, as in the JAX
 package).  All three are bit-identical.  An explicit "fused" on a shape
-outside the contract raises: the port refuses it through its uint16
-row-sum bound (:func:`fused_eligible`).  The JAX package's probe checks
-only its Pallas structure and admits some such shapes (1920x1080 ->
-64x36), where its fused sampler wraps its uint16 row sums.
+outside the contract (:func:`fused_eligible`) raises: the port's uint16
+row-sum bound, or a source row too wide for ``segment_reduce_xy``'s
+shared memory (past 35,888 columns under the reduced-size rule).  The JAX
+package's probe checks only its Pallas structure and admits some shapes
+past the row-sum bound (1920x1080 -> 64x36), where its fused sampler
+wraps its uint16 row sums.
 """
 
 from __future__ import annotations
@@ -45,9 +47,11 @@ from foveax_torch.core.sat import build_sat
 from foveax_torch.core.unwarp import unwarp_rect
 from foveax_torch.device import resolve_device
 from foveax_torch.kernels.segreduce import (
+    MAX_SHARED_BYTES,
     fused_eligible,
     sample_rect_fused,
     sample_rect_fused_batch,
+    xy_shared_bytes,
 )
 
 SAMPLERS = ("sat", "fused", "direct")
@@ -98,7 +102,12 @@ class FoveationPipeline:
             raise ValueError(
                 f"{cfg.source_width}x{cfg.source_height} -> "
                 f"{cfg.reduced_width}x{cfg.reduced_height} is outside the "
-                "fused sampler's contract (use sampler='sat' or 'auto')"
+                f"fused sampler's contract: row step {self.grid.max_dy} "
+                f"(needs 255 * max(dy) < 2^16), source width "
+                f"{cfg.source_width} and output width {cfg.reduced_width} "
+                f"(need {xy_shared_bytes(cfg.source_width, cfg.reduced_width)}"
+                f" bytes of shared memory per segment_reduce_xy block, at "
+                f"most {MAX_SHARED_BYTES}); use sampler='sat' or 'auto'"
             )
         self.sampler = sampler
 

@@ -11,7 +11,9 @@ rest of the shapes the port admits.  Source widths are drawn from 96 to
 chunks end ragged), the first above 8,192 where the limit allows (K5's
 two-chunk launch plan); heights from 64 to ``--max-height``; each shape's
 reduced size is the configuration's rule, and a shape outside the fused
-sampler's contract is drawn again.  Per shape, for a random gaze, (0, 0),
+sampler's contract is drawn again (past 35,888 columns every shape is:
+``segment_reduce_xy``'s shared memory; K5 scans such rows in column
+tiles past 32,768).  Per shape, for a random gaze, (0, 0),
 (1, 1) and the edge-clamped (0.997, 0.003):
 
 * ``segreduce_xy`` bit-equal to its plain version and to the SAT route

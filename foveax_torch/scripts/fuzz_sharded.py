@@ -233,10 +233,10 @@ def parse_wrap(text: str) -> tuple[int, int] | None:
         w, h = (int(v) for v in text.lower().split("x"))
     except ValueError:
         raise argparse.ArgumentTypeError(f"--wrap {text!r}: expected WxH or none")
-    if 255 * w * h < 2**32 or h % MESH_SIZE or w > scan2d.MAX_WIDTH:
+    if 255 * w * h < 2**32 or h % MESH_SIZE:
         raise argparse.ArgumentTypeError(
-            f"--wrap {text}: needs 255*W*H >= 2^32, H a multiple of {MESH_SIZE} "
-            f"and W <= {scan2d.MAX_WIDTH}")
+            f"--wrap {text}: needs 255*W*H >= 2^32 and H a multiple of "
+            f"{MESH_SIZE}")
     return w, h
 
 

@@ -19,6 +19,9 @@ import torch
 
 import chip_smoke
 from foveax_torch import FoveaxConfig, FoveationPipeline
+from foveax_torch.config import reduced_dim
+from foveax_torch.core.logrect import make_grid, scaled_center
+from foveax_torch.core.sample import _axis_taps
 from foveax_torch.io.wirecodec import available_wire_codecs
 from foveax_torch.kernels import fused_select as fs
 from foveax_torch.kernels import scan2d
@@ -395,6 +398,61 @@ def test_sat_build_two_chunk_plan(pipe, h, w, layout):
     torch.cuda.empty_cache()
 
 
+# Three column tiles, the last ragged (4,464 columns).
+TILED = (256, 70000)
+
+
+def _row_taps(h: int, w: int, gaze):
+    """The sampler's row taps ``(pyc, pymc)`` for one gaze on an H x W
+    frame, each (Hr,) int32 on the card (as ``fused_taps`` computes them;
+    the fused sampler itself refuses W past 35,888)."""
+    grid = make_grid(reduced_dim(w), reduced_dim(h), w, h, "cuda")
+    c = torch.tensor([gaze], dtype=torch.float32, device="cuda")
+    _, cy = scaled_center(c, w, h)
+    pyc, pymc, _ = _axis_taps(grid.gy, cy[:, None], h, wrap=False)
+    return pyc[0], pymc[0]
+
+
+@pytest.mark.parametrize("fill", ["random", "all-255"])
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_sat_build_tiled(pipe, layout, fill):
+    """K5 over three column tiles at 70000x256: a random frame, and the
+    all-255 frame, whose sums wrap past 2^32 across the tiles."""
+    h, w = TILED
+    plan = scan2d.sat_plan(h, w, column_stride=1 if layout == "chw" else 3)
+    assert (plan.tiles, plan.chunks_per_thread) == (3, 4)
+    chw = (_sat_frame(h, w, 40) if fill == "random" else
+           torch.full((3, h, w), 255, dtype=torch.uint8, device="cuda"))
+    frame = chw if layout == "chw" else chw.permute(1, 2, 0).contiguous()
+    _equal(scan2d.sat_scan(frame, in_layout=layout), scan2d.sat_scan_plain(chw))
+    del chw, frame
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("gaze", CENTERS)
+def test_select_rows_tiled(pipe, gaze):
+    """K6 over three column tiles at 70000x256 with the gaze's row taps."""
+    h, w = TILED
+    pyc, pymc = _row_taps(h, w, gaze)
+    rcw = _sat_frame(h, w, 41).permute(1, 0, 2).contiguous()
+    for g, w_ in zip(fs.sat_select_rows(rcw, pyc, pymc),
+                     fs.sat_select_rows_plain(rcw, pyc, pymc)):
+        _equal(g, w_)
+
+
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+def test_sat_build_36000_columns(pipe, layout):
+    """K5 past the 32,768 columns one block spans: two tiles at
+    36000x1024 (the second 3,232 columns)."""
+    plan = scan2d.sat_plan(1024, 36000, column_stride=1 if layout == "chw" else 3)
+    assert (plan.tiles, plan.chunks_per_thread) == (2, 4)
+    chw = _sat_frame(1024, 36000, 42)
+    frame = chw if layout == "chw" else chw.permute(1, 2, 0).contiguous()
+    _equal(scan2d.sat_scan(frame, in_layout=layout), scan2d.sat_scan_plain(chw))
+    del chw, frame
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("gazes", [[(0.5, 0.5)], [(0.999, 0.001), (0.0, 0.0), (0.3, 0.7)]],
                          ids=["centre", "batch"])
 def test_xy_and_unwarp_at_16k(pipe, gazes):
@@ -441,6 +499,20 @@ def test_select_rows_lists(pipe, case):
     h, w = 300, 1001
     pyc, pymc = _select_lists(h)[case]
     rcw = _sat_frame(h, w, 21).permute(1, 0, 2).contiguous()
+    pyc = torch.tensor(pyc, dtype=torch.int32, device="cuda")
+    pymc = torch.tensor(pymc, dtype=torch.int32, device="cuda")
+    for g, w_ in zip(fs.sat_select_rows(rcw, pyc, pymc),
+                     fs.sat_select_rows_plain(rcw, pyc, pymc)):
+        _equal(g, w_)
+
+
+@pytest.mark.parametrize("case", list(_select_lists(300)))
+def test_select_rows_lists_tiled(pipe, case):
+    """The hand-made lists over three column tiles of a 70000-column
+    frame (the last tile 4,464 columns)."""
+    h, w = 300, TILED[1]
+    pyc, pymc = _select_lists(h)[case]
+    rcw = _sat_frame(h, w, 22).permute(1, 0, 2).contiguous()
     pyc = torch.tensor(pyc, dtype=torch.int32, device="cuda")
     pymc = torch.tensor(pymc, dtype=torch.int32, device="cuda")
     for g, w_ in zip(fs.sat_select_rows(rcw, pyc, pymc),

@@ -74,12 +74,18 @@ def test_fuzz_sharded_needs_a_gpu_unless_told(capsys):
     assert "device='cpu'" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("text", ["4000x4000", "4808x4001", "40000x4000", "4808"])
+@pytest.mark.parametrize("text", ["4000x4000", "4808x4001", "40000x4001", "4808"])
 def test_wrap_size_must_wrap_and_split(text):
-    """The wrap case's size must pass 2^32, split over eight blocks and
-    fit K5's width."""
+    """The wrap case's size must pass 2^32 and split over eight blocks."""
     with pytest.raises(SystemExit):
         fuzz_sharded.main(["0", "0", "--device", "cpu", "--wrap", text])
+
+
+def test_wrap_size_may_pass_one_scanning_block():
+    """K5 scans a row wider than one block spans in column tiles, so the
+    wrap case's width has no limit of its own."""
+    assert fuzz_sharded.parse_wrap("40000x4000") == (40000, 4000)
+    assert fuzz_sharded.parse_wrap("none") is None
 
 
 @pytest.mark.parametrize("limits", [(4096, 2160), (640, 200)], ids=["card", "cpu"])

@@ -4,7 +4,8 @@ and the fused foveate -> unwarp step that foveax's bench times as
 ``step_fused``), the SAT path (``sampler="sat"``: foveate, roundtrip,
 their batches and the serve pairs), the direct path (``sampler="direct"``
 and ``batch_pair("direct")``) and the degrade to SAT of a shape outside
-the fused sampler's contract."""
+the fused sampler's contract (a row-sum bound, and at 36,000 columns
+``segment_reduce_xy``'s shared memory)."""
 
 import jax
 import jax.numpy as jnp
@@ -302,6 +303,36 @@ def test_ineligible_shape_saturated_edge_gaze():
     got = pipe.foveate(torch.from_numpy(frame), pipe.center(*center)).numpy()
     np.testing.assert_array_equal(got, want)
     assert set(np.unique(got)) == {0, 255}
+
+
+# Wider than a segment_reduce_xy block's shared memory allows (233,064
+# bytes for 36,000 source and 20,000 reduced columns), and than one K5
+# scanning block spans (32,768 columns).
+WIDE = dict(
+    source_width=36000, source_height=64, reduced_width=20000, reduced_height=48
+)
+
+
+def test_wide_shape_takes_the_sat_path():
+    """Past 35,888 source columns "auto" resolves "sat", as foveax's
+    pipeline does there, and its reduced frame equals foveax's; an explicit
+    "fused" raises naming the width and the bytes; ``batch_pair("auto")``
+    is the SAT pair."""
+    pipe = FoveationPipeline(FoveaxConfig(**WIDE), device="cpu")
+    assert (pipe.sampler, pipe.fused_ok) == ("sat", False)
+    fx = FxPipeline(FxConfig(**WIDE))
+    assert fx.sampler == "sat"
+    frame = np.random.default_rng(25).integers(0, 256, (64, 36000, 3), np.uint8)
+    center = (0.3, 0.6)
+    want = np.asarray(fx.foveate(jnp.asarray(frame), fx.center(*center)))
+    got = pipe.foveate(torch.from_numpy(frame), pipe.center(*center))
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="source width 36000 .* 233064 bytes"):
+        FoveationPipeline(FoveaxConfig(**WIDE), sampler="fused", device="cpu")
+    prepare, sample_batch = pipe.batch_pair("auto")
+    assert prepare == pipe.build_sat
+    got_b = sample_batch(prepare(torch.from_numpy(frame)), pipe.center(*center)[None])
+    np.testing.assert_array_equal(got_b[0].numpy(), want)
 
 
 def test_default_pipeline_matches_foveax(monkeypatch):

@@ -28,7 +28,9 @@ from foveax.core.sample import sample_rect_from_sat
 from foveax.core.sat import build_sat
 from foveax.kernels.segreduce import sample_rect_fused as fx_fused
 from foveax.kernels.segreduce import sample_rect_fused_batch as fx_fused_batch
+from foveax_torch.config import reduced_dim
 from foveax_torch.convert import grid_from_numpy
+from foveax_torch.core.logrect import make_grid
 from foveax_torch.core.logrect import make_point_grid as t_make_point_grid
 from foveax_torch.core.sample import _axis_taps
 from foveax_torch.core.sample import expand_sampled_rect as t_expand
@@ -365,6 +367,27 @@ def test_ineligible_grid_raises():
     frame = torch.zeros((3, 1024, 16), dtype=torch.uint8)
     with pytest.raises(ValueError, match="uint16"):
         sample_rect_fused(frame, tgrid, torch.tensor((0.5, 0.5)))
+
+
+@pytest.mark.parametrize(
+    "w, h, eligible",
+    [(36000, 18000, False), (36000, 64, False), (34560, 17280, True),
+     (35888, 64, True), (35889, 64, False)],
+)
+def test_fused_contract_includes_shared_memory(w, h, eligible):
+    """The fused sampler's contract includes ``segment_reduce_xy``'s
+    shared memory: under the reduced-size rule its block fits the card up
+    to 35,888 source columns.  Host arithmetic on the grid's own fields,
+    so the CPU holds it as the card would."""
+    grid = make_grid(reduced_dim(w), reduced_dim(h), w, h, "cpu")
+    smem = segreduce.xy_shared_bytes(w, reduced_dim(w))
+    assert (smem <= segreduce.MAX_SHARED_BYTES) == eligible
+    assert segreduce.fused_eligible(grid) == eligible
+    assert 255 * grid.max_dy < 2**16  # the row-sum bound holds throughout
+    if not eligible:
+        frame = torch.empty((3, h, w), dtype=torch.uint8, device="meta")
+        with pytest.raises(ValueError, match=f"source width {w} .* {smem} bytes"):
+            segreduce.fused_taps(grid, frame, torch.zeros((1, 2)))
 
 
 # -- the CLI-only samplers -------------------------------------------------

@@ -15,7 +15,7 @@ from foveax.kernels.fused_select import sat_select_rows as fx_select_rows
 from foveax.kernels.scan2d import build_sat_pallas
 from foveax_torch.core.sat import build_sat, decode_sat
 from foveax_torch.kernels import scan2d
-from foveax_torch.kernels.fused_select import SELECT_ROWS, sat_select_rows
+from foveax_torch.kernels.fused_select import sat_select_rows
 
 torch.set_num_threads(1)
 
@@ -159,17 +159,36 @@ def test_sat_plan_one_band_launches_once():
     assert (plan.launches, plan.scratch_words, plan.threads) == (1, 0, 32)
 
 
-def test_sat_wrappers_raise_before_launch_past_max_width():
-    """A frame wider than a scanning block spans is refused, with its
-    width in the message, before anything is launched (meta tensors reach
-    the kernel branch of the wrappers without a card)."""
-    w = scan2d.MAX_WIDTH + 16
-    before = (scan2d.SAT_BUILD.launches, SELECT_ROWS.launches)
-    frame = torch.empty((2, w, 3), dtype=torch.uint8, device="meta")
-    with pytest.raises(ValueError, match=f"width {w}"):
-        scan2d.sat_scan(frame, in_layout="hwc")
-    rcw = torch.empty((2, 3, w), dtype=torch.uint8, device="meta")
-    idx = torch.zeros(2, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match=f"width {w}"):
-        sat_select_rows(rcw, idx, idx)
-    assert (scan2d.SAT_BUILD.launches, SELECT_ROWS.launches) == before
+@pytest.mark.parametrize("column_stride", [1, 3], ids=["chw", "hwc"])
+@pytest.mark.parametrize("w", [32784, 36000, 65536, 70000, 100000, 131072])
+def test_sat_plan_tiles_wide_frames(w, column_stride):
+    """Past the 32,768 columns one scanning block spans, the plan cuts the
+    row into column tiles, walked as ``csrc/scan2d.cu`` walks them (from 0
+    in steps of MAX_WIDTH, the last one ragged unless W is a multiple):
+    they cover [0, W) once, each starting on a 16-column boundary, a block
+    of the plan spans a whole tile within the card's shared memory, and
+    the band-total scratch holds the whole width."""
+    h = 18000
+    plan = scan2d.sat_plan(h, w, column_stride=column_stride)
+    tiles = [(x0, min(scan2d.MAX_WIDTH, w - x0))
+             for x0 in range(0, w, scan2d.MAX_WIDTH)]
+    assert len(tiles) == plan.tiles == -(-w // scan2d.MAX_WIDTH) >= 2
+    assert tiles[-1][1] == (w % scan2d.MAX_WIDTH or scan2d.MAX_WIDTH)
+    covered = np.zeros(w, np.int64)
+    for x0, tw in tiles:
+        assert x0 % scan2d.CHUNK == 0 and 1 <= tw <= scan2d.MAX_WIDTH
+        covered[x0:x0 + tw] += 1
+    assert (covered == 1).all()
+    assert (plan.threads, plan.chunks_per_thread) == (scan2d.MAX_THREADS, 4)
+    assert plan.threads * plan.chunks_per_thread * scan2d.CHUNK == scan2d.MAX_WIDTH
+    assert plan.shared_bytes <= scan2d.MAX_SHARED_BYTES
+    bands = -(-h // plan.band_rows)
+    assert plan.scratch_words == 3 * (bands - 1) * -(-w // 16) * 16
+    assert plan.launches == 2 + plan.tiles
+
+
+@pytest.mark.parametrize("h, w", [(0, 64), (64, 0)])
+def test_sat_plan_refuses_empty_frame(h, w):
+    """An empty frame has no plan (the wrappers launch nothing for it)."""
+    with pytest.raises(ValueError, match=f"empty {w}x{h} frame"):
+        scan2d.sat_plan(h, w)

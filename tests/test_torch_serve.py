@@ -246,6 +246,25 @@ def test_fused_batch_sampler_refuses_ineligible_source():
     asyncio.run(main())
 
 
+def test_fused_batch_sampler_refuses_wide_source():
+    """The same at 36000x64 (-> 20000x48), inside the row-sum bound but
+    wider than a ``segment_reduce_xy`` block's shared memory allows."""
+    server = FoveaxServer(FoveaxConfig(), device="cpu", broadcast=True,
+                          batch_sampler="fused")
+    server.max_pipelines = 1
+    channel = BroadcastChannel(server, "synthetic://36000x64@30/2")
+
+    class _WS:
+        transport = None
+
+    async def main():
+        with pytest.raises(ValueError, match="36000x64 fails"):
+            channel.join(Session(_WS(), server))
+        assert channel.reader is None and channel.task is None
+
+    asyncio.run(main())
+
+
 def test_client_rejects_resolution_mismatch():
     port = _free_port()
     server = _server(max_frames=4)
