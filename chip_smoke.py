@@ -6,7 +6,7 @@
 Phases, each of which raises on failure (exit code 1):
 
 1. Build the CUDA kernels from ``foveax_torch/kernels/csrc`` (one nvcc per
-   source, in parallel).
+   source, four sources, in parallel).
 2. Run each kernel and its plain PyTorch version on the same inputs on the
    card: they must be bit-equal (tolerance 0; uint32 SATs compared through
    their int32 view).  The fused path's sampler ``segreduce_xy`` (one
@@ -23,21 +23,28 @@ Phases, each of which raises on failure (exit code 1):
    SAT row select K6 at 1080p and 4K with each gaze's row taps, a list
    with duplicates and the first and last rows, n = 1, duplicates across a
    band boundary, and a pyc list reaching row H-1 beside a pymc list that
-   ends in the first band.
+   ends in the first band; the SAT path's 4-tap sampler K7 in both output
+   layouts on K5's SATs of random 1080p and 4K frames with each gaze's
+   taps (N = 1) and the eight gazes of :data:`BATCH_GAZES` (N = 8), on
+   random taps (non-monotone seam columns, ``pmc = pc - 1``), on SAT words
+   plus random per-row and per-column offsets mod 2^32 (they cancel in
+   every box), on the all-255 8K SAT (its words wrap past 2^32)
+   at eight gazes, and at 1000x500 -> 560x288 and output width 1001 (8K
+   and 16K in phase 11, 36000x18000 in phase 15).
 3. Drive two 4K paths through ``FoveationPipeline``, each over a 32-frame
    gaze trace with every restored frame fed back as the next input
    (``foveate_chw`` then the fused ``unwarp_auto_chw``): the fused path
-   (``segreduce_xy`` and ``unwarp_xy`` rise by exactly 32, K1, K2, K5 and
-   K6 by 0) and the SAT path, ``sampler="sat"`` (K5 and ``unwarp_xy`` by
-   32, the others by 0; every reduced frame equal to the fused pipeline's
-   on the same input).  In both the
+   (``segreduce_xy`` and ``unwarp_xy`` rise by exactly 32, K1, K2, K5, K6
+   and K7 by 0) and the SAT path, ``sampler="sat"`` (K5, K7 and
+   ``unwarp_xy`` by 32, the others by 0; every reduced frame equal to the
+   fused pipeline's on the same input).  In both the
    fovea of every roundtrip must equal its source and the first frame the
    CPU pipeline's result.  Then the serve tick's SAT pair at 4K
-   (``batch_pair("sat")``, eight gazes: one K5 launch, the batch equal to
-   the fused batch) and the degrade contract (1920x1080 -> 64x36, outside
-   the fused sampler's and the fused unwarp's contracts: "auto" runs the
-   SAT path and the exact unwarp, one K5 launch and no unwarp kernel, equal
-   to the CPU path; "fused" raises).
+   (``batch_pair("sat")``, eight gazes: one K5 and one K7 launch, the
+   batch equal to the fused batch) and the degrade contract (1920x1080 ->
+   64x36, outside the fused sampler's and the fused unwarp's contracts:
+   "auto" runs the SAT path and the exact unwarp, one K5 and one K7 launch
+   and no unwarp kernel, equal to the CPU path; "fused" raises).
 4. Time each kernel, its plain version and, for K5, the library's two
    ``torch.cumsum`` calls at the 4K main-path shapes (CUDA events, median
    of 50 launches (10 for plain and library), L2 flushed before each), in
@@ -45,11 +52,10 @@ Phases, each of which raises on failure (exit code 1):
    time before the launch counts; ``ms_queued`` first keeps the card busy
    for about 0.2 ms (``torch.cuda._sleep``, its cycle count derived once
    from a timed sleep and printed) while the host enqueues the start
-   event, the call and the end event; then the SAT path's plain-torch
-   sampler ``sample_rect_from_sat`` alone at 4K (``ms_queued`` and the
-   bytes it must move; not a kernel).  Then both chained paths at 1080p
-   and 4K (host clock, synchronised), beside the card's name and power
-   limit.
+   event, the call and the end event.  K7's bound counts each SAT word
+   the run's taps need once (:func:`sat_sample_bytes`).  Then both
+   chained paths at 1080p and 4K (host clock, synchronised), beside the
+   card's name and power limit.
 5. Serve on the card at 1920x1080 -> 1072x608: the port's ``FoveaxServer``
    and ``FoveaxClient`` through an in-memory connection pair
    (:func:`memory_pair`, asyncio queues), the wire codec resolved as the
@@ -59,8 +65,8 @@ Phases, each of which raises on failure (exit code 1):
    ``unwarp_xy`` +8 each, every other kernel +0), then a 4-client broadcast
    channel of 6 ticks, with ``batch_sampler="fused"`` (one
    ``segreduce_xy`` launch per served tick) and ``"sat"`` (one K5 launch
-   per tick, then the plain 4-tap sampler); ``unwarp_xy`` once per frame a
-   client restores.  Every reduced frame the server hands an encoder must
+   per tick, then one K7 launch per served tick); ``unwarp_xy`` once per
+   frame a client restores.  Every reduced frame the server hands an encoder must
    equal the CPU pipeline's ``foveate`` of the same source frame at the
    gaze its ``FrameMeta`` echoes, and every restored frame the CPU
    pipeline's ``unwarp_auto`` of the decoded reduced frame (tolerance 0).
@@ -111,15 +117,16 @@ Phases, each of which raises on failure (exit code 1):
    (``foveax_torch/graft_entry.py``), then at 4K (3840x2160 -> 2144x1200)
    over the 8 gazes of :data:`BATCH_GAZES`: ``sharded_build_sat`` (K5 +2,
    one launch a space block), ``multi_client_step`` (reduced and restored
-   frames; K5 +2, no unwarp kernel: the exact unwarp),
-   ``frame_parallel_roundtrip`` over 4 frames (K5 +4),
+   frames; K5 +2, K7 +2, one a data shard, no unwarp kernel: the exact
+   unwarp), ``frame_parallel_roundtrip`` over 4 frames (K5 +4, K7 +4),
    ``sharded_sample_batch_fused`` (``segreduce_xy`` +2, one launch a data
    shard) and both ``jit_serve_parts`` pairs, each with its launches read
    around it and its outputs equal (tolerance 0) to the single-device path
    on the card and to the same call on a mesh of CPU entries.  Then the
    broadcast ``FoveaxServer(mesh=...)`` at 1920x1080 -> 1072x608 through
    :func:`memory_pair` (4 clients, 6 ticks, ``batch_sampler`` "fused" then
-   "sat"; ``segreduce_xy`` twice a served tick or K5 twice a tick, every
+   "sat"; ``segreduce_xy`` twice a served tick, or K5 twice a tick and K7
+   twice a served tick, every
    served and restored frame equal to the CPU path as phase 5 checks it),
    ``place_videos="round_robin"``'s ``_next_device()`` (printed) and a
    round-robin broadcast of two videos, two clients each (each channel's
@@ -149,8 +156,9 @@ Phases, each of which raises on failure (exit code 1):
    the fovea of every roundtrip equal to its source); then every launch is
    held on the card to its plain version on the same inputs (tolerance 0)
    and each restored frame to the exact unwarp (at most 1 LSB).  The SAT
-   path at both sizes for one gaze (K5 +1, the SAT equal to the plain
-   version's, the reduced frame to the fused path's).  Then both paths'
+   path at both sizes for one gaze (K5 +1, K7 +1, the SAT and the reduced
+   frame equal to their plain versions', the reduced frame to the fused
+   path's).  Then both paths'
    chained fps at both sizes as in phase 4,
    ``foveax_torch.scripts.stage_bench`` over 1080p, 4K, 8K and 16K and the
    five stages (host and device ms per frame) and the CLI's ``perf
@@ -176,7 +184,8 @@ Phases, each of which raises on failure (exit code 1):
    sums wrap past 2^32: every sharded output equal to the single-device
    path and to the same call on a mesh of CPU entries, K5 launched once a
    space block (twice a shape) and once alone, ``segreduce_xy`` once a
-   data shard, with no failure.  Then the port's ``FoveaxClient`` is fed,
+   data shard, K7 once a gaze alone and once a data shard in each of the
+   two sharded samples, with no failure.  Then the port's ``FoveaxClient`` is fed,
    through :func:`memory_pair`, a stream whose init segment declares other
    dimensions than its configuration's, and one whose init segment
    matches but whose sample decodes to other dimensions: each must raise
@@ -194,22 +203,26 @@ Phases, each of which raises on failure (exit code 1):
    70000x256 with each gaze's row taps and at 36000x1024 with a pyc list
    reaching row H-1, against its plain version (tolerance 0).  Then at
    36000x18000 -> 20000x10000 ``FoveationPipeline`` "auto" must resolve
-   "sat": 4 chained gazes of ``foveate_chw`` then ``unwarp_auto_chw`` (K5
-   and ``unwarp_xy`` +4, every other kernel +0; the fovea of every
+   "sat": 4 chained gazes of ``foveate_chw`` then ``unwarp_auto_chw`` (K5,
+   K7 and ``unwarp_xy`` +4, every other kernel +0; the fovea of every
    roundtrip equal to its source); every ``unwarp_xy`` output equal to
    ``unwarp_xy_plain`` and within 1 LSB of the exact unwarp, a channel at
    a time; the serve tick's SAT pair ``batch_pair("auto")`` on the first
-   frame with 2 gazes (K5 +1, nothing else; two gazes, because the plain
-   SAT sampler's row gathers hold about 23 GB a gaze here), its SAT equal
-   to the plain scan in 1,024-row blocks (each carried on from the block
-   above), its first row equal to the chained path's first reduced frame
-   and its second to the single-gaze sampler's on the same SAT; the first
-   reduced frame equal to ``sampler="direct"``'s.  The chained fps, a
-   ``torch.profiler`` kernel breakdown of one chained frame, K5's
-   ``ms``/``ms_queued`` beside its bytes bound and the peak tensor bytes
-   of the SAT path, the batch pair and the direct sampler print.  At
-   34560x17280 -> 19200x9600 (223,744 bytes a block) "auto" must resolve
-   "fused", ``sampler="sat"`` (K5 +1, in two tiles) and the fused sampler
+   frame with 3 and with 8 gazes (:data:`WIDE_BATCHES`; K5 +1, K7 +1,
+   nothing else), its SAT equal to the plain scan in 1,024-row blocks
+   (each carried on from the block above), its first row equal to the
+   chained path's first reduced frame and to ``sat_sample_batch_plain``
+   (after the batch is freed: the plain version holds about 23 GB a gaze
+   here) and every row to the single-gaze sampler's on the same SAT; then
+   ``batch_pair("direct")`` with 3 gazes, each row equal to the SAT
+   batch's, or its ``torch.OutOfMemoryError`` printed (a finding, not a
+   failure); the first reduced frame equal to ``sampler="direct"``'s.  The
+   chained fps, a ``torch.profiler`` kernel breakdown of one chained
+   frame, K5's and K7's ``ms``/``ms_queued`` beside their bytes bounds and
+   the peak tensor bytes of the SAT path, each batch pair and the direct
+   sampler print.  At 34560x17280 -> 19200x9600 (223,744 bytes a block)
+   "auto" must resolve "fused", ``sampler="sat"`` (K5 +1, in two tiles,
+   K7 +1) and the fused sampler
    (``segreduce_xy`` +1) give equal reduced frames at one gaze, and the
    fused one equals ``segment_reduce_xy_batch_plain``.  The phase's wall
    time prints beside the card's name and power limit.
@@ -242,7 +255,7 @@ from foveax_torch.core import direct as core_direct
 from foveax_torch.core import gnomonic, logpolar, metrics
 from foveax_torch.core import sample as core_sample
 from foveax_torch.config import reduced_dim
-from foveax_torch.core.logrect import make_grid, make_point_grid, scaled_center
+from foveax_torch.core.logrect import make_grid, make_point_grid
 from foveax_torch.core.sat import build_sat
 from foveax_torch.core.svd_sat import compress_sat, sat_to_numpy
 from foveax_torch.core.unwarp import unwarp_rect
@@ -251,10 +264,11 @@ from foveax_torch.io.mux import FragmentWriter
 from foveax_torch.io.video import SyntheticReader
 from foveax_torch.serve.client import SvdDecoder
 from foveax_torch.kernels import fused_select as fs
+from foveax_torch.kernels import sat_sample as ss
 from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
 from foveax_torch.kernels import unwarp as uw
-from foveax_torch.kernels.build import build
+from foveax_torch.kernels.build import SOURCES, build
 from foveax_torch.parallel import make_mesh
 from foveax_torch.parallel import sharded
 from foveax_torch.io.wirecodec import JpegWireEncoder, available_wire_codecs
@@ -286,7 +300,7 @@ ODD_SHAPE = (1000, 500, 560, 288)
 # The kernels each path launches once per frame.
 PATH_KERNELS = {
     "fused": ("segreduce_xy", "unwarp_xy"),
-    "sat": ("sat_build", "unwarp_xy"),
+    "sat": ("sat_build", "sat_sample", "unwarp_xy"),
     "direct": ("unwarp_xy",),
 }
 # How long the card is kept busy before a queued timing's start event.
@@ -312,6 +326,7 @@ def kernel_table():
     seg = "foveax_torch/kernels/csrc/segreduce.cu"
     unw = "foveax_torch/kernels/csrc/unwarp.cu"
     scan = "foveax_torch/kernels/csrc/scan2d.cu"
+    sample = "foveax_torch/kernels/csrc/sat_sample.cu"
     return {
         "segreduce_xy": (sr.XY_PASS, seg, "foveax/kernels/segreduce.py:251, "
                          "foveax/kernels/segreduce.py:511"),
@@ -322,6 +337,9 @@ def kernel_table():
         "sat_build": (scan2d.SAT_BUILD, scan, "foveax/kernels/scan2d.py:51"),
         "sat_select_rows": (fs.SELECT_ROWS, scan,
                             "foveax/kernels/fused_select.py:46"),
+        "sat_sample": (ss.SAT_SAMPLE, sample,
+                       "foveax/core/sample.py:155 (plain JAX: no Pallas "
+                       "counterpart)"),
     }
 
 
@@ -597,6 +615,91 @@ def phase_compare_sat(errs: dict[str, int]) -> None:
               "bit-equal to the plain version", flush=True)
 
 
+def sat_taps(grid, sat, centers):
+    """The taps ``sample_rect_from_sat`` hands K7 for ``centers`` (N, 2),
+    in the order of ``sat_sample_batch``'s arguments after the SAT."""
+    _, hs, ws = sat.shape
+    pxc, pxmc, vx, pyc, pymc, vy = core_sample.gaze_taps(grid, hs, ws, centers)
+    return pxmc, pxc, vx, pymc, pyc, vy
+
+
+def sat_sample_bytes(taps, out: torch.Tensor) -> int:
+    """The bytes K7 must move for ``taps`` (one gaze): each SAT word that a
+    valid cell needs read once (the valid rows' taps times the valid
+    columns' taps, three channels), the taps read once, the output written
+    once."""
+    pxmc, pxc, vx, pymc, pyc, vy = taps
+    words = 0
+    for g in range(pxc.shape[0]):
+        cols = torch.unique(torch.cat([pxc[g][vx[g]], pxmc[g][vx[g]]])).numel()
+        rows = torch.unique(torch.cat([pyc[g][vy[g]], pymc[g][vy[g]]])).numel()
+        words += 3 * rows * cols
+    return 4 * words + sum(t.numel() * t.element_size() for t in taps) + out.numel()
+
+
+def sat_sample_ops(taps) -> int:
+    """K7's operations for ``taps``: three subtractions and one division
+    per channel of each valid cell."""
+    _, _, vx, _, _, vy = taps
+    return 12 * int((vy.sum(1) * vx.sum(1)).sum())
+
+
+def sat_sample_extra_cases(rng, sat, n: int, wr: int, hr: int):
+    """K7's arguments beyond the path's taps: random in-contract taps (no
+    order across a row, as at the seam; every third interval one long,
+    ``pmc = pc - 1``) over ``sat``, and the same taps over the SAT's words
+    plus a random offset per row and per column, mod 2^32: the offsets
+    cancel in every box, but nearly every 4-tap difference leaves [0,
+    2^32) before the wrap."""
+    _, hs, ws = sat.shape
+    dev = sat.device
+    pxc, pxmc, vx = random_taps(rng, n, wr, ws, ws - 1, dev)
+    pyc, pymc, vy = random_taps(rng, n, hr, hs, hs - 1, dev)
+    pxmc[:, 1::3], pymc[:, 1::3] = pxc[:, 1::3] - 1, pyc[:, 1::3] - 1
+    taps = (pxmc, pxc, vx, pymc, pyc, vy)
+    row, col = (torch.from_numpy(rng.integers(0, 2**32, n, np.int64)).to(dev)
+                for n in (hs, ws))
+    offset = scan2d.low32(scan2d.as_int64(sat) + row[:, None] + col[None, :])
+    return {"random taps": (sat, *taps), "random taps, offset words": (offset, *taps)}
+
+
+def phase_compare_sat_sample(errs: dict[str, int], device: str = "cuda") -> None:
+    """K7 against its plain version in both output layouts (module
+    docstring, phase 2); on the CPU both are the plain version."""
+    cases = {}
+    for shape in SHAPES:
+        pipe = make_pipeline(shape, device)
+        sat = build_sat(make_frame(pipe, SEED), in_layout="chw")
+        for gazes in [[g] for g in GAZES] + [BATCH_GAZES]:
+            centers = torch.tensor(gazes, dtype=torch.float32, device=device)
+            cases[f"{shape}, gazes {gazes}"] = (sat, *sat_taps(pipe.grid, sat, centers))
+        hr, wr, _ = pipe.reduced_shape
+        rng = np.random.default_rng(SEED + wr)
+        for what, args in sat_sample_extra_cases(rng, sat, 3, wr, hr).items():
+            cases[f"{shape}, {what}"] = args
+    pipe = make_pipeline("8k", device)
+    sat = build_sat(sat_frame(*LADDER["8k"], 255, device), in_layout="chw")
+    centers = torch.tensor(BATCH_GAZES, dtype=torch.float32, device=device)
+    cases["8k all-255, 8 gazes"] = (sat, *sat_taps(pipe.grid, sat, centers))
+    w, h, wr, hr = ODD_SHAPE
+    sat = build_sat(sat_frame(w, h, None, device), in_layout="chw")
+    grid = make_grid(wr, hr, w, h, device)
+    centers = torch.tensor(GAZES, dtype=torch.float32, device=device)
+    cases[f"{w}x{h}, {len(GAZES)} gazes"] = (sat, *sat_taps(grid, sat, centers))
+    rng = np.random.default_rng(SEED + w)
+    cases[f"{w}x{h}, random taps, width 1001"] = sat_sample_extra_cases(
+        rng, sat, 2, 1001, hr)["random taps"]
+    for layout in ss.LAYOUTS:
+        compare_extra(errs, "sat_sample",
+                      lambda *a: ss.sat_sample_batch(*a, layout),
+                      lambda *a: ss.sat_sample_batch_plain(*a, layout),
+                      cases, layout)
+    print(f"compare sat_sample: {len(cases)} cases x 2 layouts ({', '.join(SHAPES)} "
+          f"at {len(GAZES)} single gazes and {len(BATCH_GAZES)} together, random "
+          f"taps, offset words; 8k all-255; {w}x{h}; width 1001), bit-equal to "
+          "the plain version", flush=True)
+
+
 def fovea_slices(pipe, gaze) -> tuple[slice, slice]:
     h, w, _ = pipe.source_shape
     cx = int(np.float32(gaze[0]) * np.float32(w))
@@ -700,8 +803,8 @@ def phase_main_path(kernels, sampler: str, shape: str = "4k",
 
 
 def phase_serve_pair(kernels, shape: str = "4k") -> None:
-    """The serve tick's SAT pair over a gaze batch: one SAT build, the
-    batch equal to the fused batch sampler's."""
+    """The serve tick's SAT pair over a gaze batch: one SAT build and one
+    K7 launch, the batch equal to the fused batch sampler's."""
     pipe = make_pipeline(shape, "cuda")
     frame = make_frame(pipe, SEED + 4).permute(1, 2, 0).contiguous()
     centers = torch.tensor(BATCH_GAZES, dtype=torch.float32, device="cuda")
@@ -709,7 +812,7 @@ def phase_serve_pair(kernels, shape: str = "4k") -> None:
     zero_counts(kernels)
     got = sample_batch(prepare(frame), centers)
     launches = read_counts(kernels)
-    expect_counts("serve pair", launches, {"sat_build": 1})
+    expect_counts("serve pair", launches, {"sat_build": 1, "sat_sample": 1})
     if not torch.equal(got, pipe.sample_batch_fused(frame, centers)):
         raise AssertionError("SAT serve pair differs from the fused batch")
     print(f"serve pair sat {shape}: {len(BATCH_GAZES)} gazes, launches "
@@ -718,8 +821,9 @@ def phase_serve_pair(kernels, shape: str = "4k") -> None:
 
 def phase_degrade(kernels) -> None:
     """A shape outside the fused sampler's and the fused unwarp's
-    contracts: "auto" resolves to the SAT path and runs K5, the unwarp's
-    "auto" to the exact unwarp (no kernel); an explicit "fused" raises."""
+    contracts: "auto" resolves to the SAT path and runs K5 and K7, the
+    unwarp's "auto" to the exact unwarp (no kernel); an explicit "fused"
+    raises."""
     cfg = FoveaxConfig(source_width=1920, source_height=1080,
                        reduced_width=64, reduced_height=36)
     pipe = FoveationPipeline(cfg)
@@ -737,7 +841,7 @@ def phase_degrade(kernels) -> None:
     reduced = pipe.foveate_chw(frame, c)
     restored = pipe.unwarp_auto_chw(reduced, c)
     launches = read_counts(kernels)
-    expect_counts("degrade", launches, {"sat_build": 1})
+    expect_counts("degrade", launches, {"sat_build": 1, "sat_sample": 1})
     cpu = FoveationPipeline(cfg, device="cpu")
     want_red = cpu.foveate_chw(frame.cpu(), c.cpu())
     want = (want_red, cpu.unwarp_auto_chw(want_red, c.cpu()))
@@ -786,24 +890,33 @@ def time_cuda(fn, args, reps: int, flush: torch.Tensor, spin: int = 0) -> float:
 
 
 def sat_cases(pipe, frame, centers):
-    """K5 and K6 as the SAT path and ``sat_select_rows`` give them work at
-    this shape, with their library yardstick (K5: two ``torch.cumsum``
-    calls in int64; none selects SAT rows without building the SAT).  Ops
-    count one add per element of each scan the data needs."""
+    """K5, K6 and K7 as the SAT path and ``sat_select_rows`` give them work
+    at this shape, with their library yardstick (K5: two ``torch.cumsum``
+    calls in int64; none selects SAT rows without building the SAT, nor
+    gathers four SAT taps and divides) and, for K7, the bytes its taps
+    need (:func:`sat_sample_bytes`).  Ops count one add per element of
+    each scan the data needs."""
     _, h, w = frame.shape
     *_, pyc, pymc, _ = sr.fused_taps(pipe.grid, frame, centers)
     pyc, pymc = pyc[0], pymc[0]
     rows_walked = int(torch.maximum(pyc[-1], pymc[-1])) + 1
     rcw = frame.permute(1, 0, 2).contiguous()
+    sat = scan2d.sat_scan(frame, in_layout="chw")
+    taps = sat_taps(pipe.grid, sat, centers)
+    k7 = lambda *a: ss.sat_sample_batch(*a, "chw")  # noqa: E731
     return {
         "sat_build": (
             lambda f: scan2d.sat_scan(f, in_layout="chw"), scan2d.sat_scan_plain,
             (frame,), 2 * 3 * h * w,
-            lambda f: torch.cumsum(torch.cumsum(f, 2, dtype=torch.int64), 1),
+            lambda f: torch.cumsum(torch.cumsum(f, 2, dtype=torch.int64), 1), None,
         ),
         "sat_select_rows": (
             fs.sat_select_rows, fs.sat_select_rows_plain, (rcw, pyc, pymc),
-            3 * w * rows_walked + 2 * pyc.numel() * 3 * w, None,
+            3 * w * rows_walked + 2 * pyc.numel() * 3 * w, None, None,
+        ),
+        "sat_sample": (
+            k7, lambda *a: ss.sat_sample_batch_plain(*a, "chw"), (sat, *taps),
+            sat_sample_ops(taps), None, sat_sample_bytes(taps, k7(sat, *taps)),
         ),
     }
 
@@ -814,7 +927,7 @@ def phase_timing(shape: str = "4k") -> list[dict]:
     centers = torch.tensor([GAZES[0]], dtype=torch.float32, device="cuda")
     flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")  # 128 MiB
     cases = {
-        name: (*case, None)
+        name: (*case, None, None)
         for name, case in path_cases(pipe, frame, centers).items()
     }
     cases.update(sat_cases(pipe, frame, centers))
@@ -822,8 +935,9 @@ def phase_timing(shape: str = "4k") -> list[dict]:
     print(f"timing {shape}: queued readings spin {spin} cycles (about "
           f"{SPIN_MS} ms) after each flush", flush=True)
     rows = []
-    for name, (fn, plain, args, ops, library) in cases.items():
-        nbytes = sum(t.numel() * t.element_size() for t in tensors((args, fn(*args))))
+    for name, (fn, plain, args, ops, library, nbytes) in cases.items():
+        if nbytes is None:
+            nbytes = sum(t.numel() * t.element_size() for t in tensors((args, fn(*args))))
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         row = {
@@ -844,24 +958,7 @@ def phase_timing(shape: str = "4k") -> list[dict]:
             row["library_ms_queued"] = time_cuda(library, args, 10, flush, spin)
         print(f"timing {shape}: {json.dumps(row)}", flush=True)
         rows.append(row)
-    time_sat_sampler(pipe, frame, centers[0], flush, spin, shape)
     return rows
-
-
-def time_sat_sampler(pipe, frame, center, flush, spin: int, shape: str) -> None:
-    """The SAT path's plain-torch 4-tap sampler (``sample_rect_from_sat``)
-    on its own: ``ms_queued`` as the kernels', and the bytes it must move
-    at least (the four uint32 SAT taps of every output value read once,
-    the uint8 frame written once).  Not a kernel: not in the kernels
-    line."""
-    sat = scan2d.sat_scan(frame, in_layout="chw")
-    hr, wr, _ = pipe.reduced_shape
-    row = {
-        "name": "sample_rect_from_sat",
-        "ms_queued": time_cuda(pipe.sample_chw, (sat, center), 50, flush, spin),
-        "bytes": 4 * 3 * hr * wr * 4 + 3 * hr * wr,
-    }
-    print(f"timing {shape}: {json.dumps(row)}", flush=True)
 
 
 def phase_path_fps(shape: str, sampler: str) -> float:
@@ -1140,9 +1237,9 @@ def serve_expected(batch_sampler, clients, mesh=None) -> dict[str, int]:
     """The launches a serve run must show: ``batch_sampler`` None for a
     session (the fused sampler once per frame), else the broadcast
     channel's (one fused launch per served tick, or one K5 launch per tick
-    read; over a mesh, one per data shard, or one per space block; none
-    for the direct sampler); ``unwarp_xy`` once per frame the clients
-    restored."""
+    read and one K7 launch per served tick; over a mesh, one per data
+    shard, or K5 one per space block; none for the direct sampler);
+    ``unwarp_xy`` once per frame the clients restored."""
     frames = sum(c.stats.frames for c in clients)
     n_data, n_space = (mesh.shape["data"], mesh.shape["space"]) if mesh else (1, 1)
     if batch_sampler is None:
@@ -1151,7 +1248,8 @@ def serve_expected(batch_sampler, clients, mesh=None) -> dict[str, int]:
         return {"segreduce_xy": n_data * served_ticks(clients), "unwarp_xy": frames}
     if batch_sampler == "direct":
         return {"unwarp_xy": frames}
-    return {"sat_build": n_space * BROADCAST_TICKS, "unwarp_xy": frames}
+    return {"sat_build": n_space * BROADCAST_TICKS,
+            "sat_sample": n_data * served_ticks(clients), "unwarp_xy": frames}
 
 
 def serve_timings(server, clients) -> str:
@@ -1509,8 +1607,9 @@ def phase_math(device: str = "cuda", cfg=None, viewport=VIEWPORT) -> dict:
 # with ``--clients 8``, 8 + 6 batch steps (fused: one segreduce_xy for the
 # 8 gazes); ``stages``: stage 1 one foveate, stage 2 one SAT build, stage 3
 # 30 served and restored frames, stage 4 26 SAT-path steps, stage 5 61
-# one-SAT batches and 8 single foveates, stage 6 one SAT build (the direct
-# sampler launches no kernel); ``doctor`` builds and launches K5 once.
+# one-SAT batches and 8 single foveates, stage 6 one SAT build and two
+# gazes sampled from it (the direct sampler launches no kernel); K7 once
+# per SAT sample; ``doctor`` builds and launches K5 once.
 CLI_SOURCE = "synthetic://1920x1080@30/{}"
 CLI_FRAMES = 4
 PERF_STEPS = 2 * (8 + 6)  # two resolutions, chain(2) twice and chain(8 + 2)
@@ -1518,9 +1617,9 @@ STAGE_EXPECTED = {
     1: {"segreduce_xy": 1},
     2: {"sat_build": 1},
     3: {"segreduce_xy": 30, "unwarp_xy": 30},
-    4: {"sat_build": 26, "unwarp_xy": 26},
-    5: {"sat_build": 61, "segreduce_xy": 8},
-    6: {"sat_build": 1},
+    4: {"sat_build": 26, "sat_sample": 26, "unwarp_xy": 26},
+    5: {"sat_build": 61, "sat_sample": 61, "segreduce_xy": 8},
+    6: {"sat_build": 1, "sat_sample": 2},
 }
 PERF_DIRECT = ["perf", "--resolutions", "1080p", "--frames", "8", "--clients",
                "8", "--sampler", "direct", "--batch-sampler", "direct"]
@@ -1536,11 +1635,11 @@ CLI_EXPECTED = {
     "decode": {},
     "gaze_eval": {},
     "perf": {"segreduce_xy": 2 * PERF_STEPS, "unwarp_xy": PERF_STEPS},
-    "perf --sampler sat": {"sat_build": PERF_STEPS, "unwarp_xy": PERF_STEPS,
-                           "segreduce_xy": PERF_STEPS},
+    "perf --sampler sat": {"sat_build": PERF_STEPS, "sat_sample": PERF_STEPS,
+                           "unwarp_xy": PERF_STEPS, "segreduce_xy": PERF_STEPS},
     "perf --sampler direct": {"unwarp_xy": PERF_STEPS // 2},
     "stages": {name: sum(e.get(name, 0) for e in STAGE_EXPECTED.values())
-               for name in ("segreduce_xy", "unwarp_xy", "sat_build")},
+               for name in ("segreduce_xy", "unwarp_xy", "sat_build", "sat_sample")},
     "doctor": {"sat_build": 1},
     "perf 8k 16k": {"segreduce_xy": PERF_LADDER_STEPS, "unwarp_xy": PERF_LADDER_STEPS},
 }
@@ -1708,16 +1807,16 @@ def mesh_cases(pipe, mesh, frame, frames, centers, centers_b) -> dict:
                               lambda: (build_sat(frame),), {"sat_build": n_space}),
         "multi_client_step": (
             lambda: sharded.multi_client_step(frame, centers, grid, mesh),
-            single_step, {"sat_build": n_space}),
+            single_step, {"sat_build": n_space, "sat_sample": n_data}),
         "frame_parallel_roundtrip": (
             lambda: sharded.frame_parallel_roundtrip(frames, centers_b, grid, mesh),
-            single_roundtrip, {"sat_build": len(frames)}),
+            single_roundtrip, {"sat_build": len(frames), "sat_sample": len(frames)}),
         "sharded_sample_batch_fused": (
             lambda: (sharded.sharded_sample_batch_fused(frame, centers, grid, mesh),),
             single_fused, {"segreduce_xy": n_data}),
         "jit_serve_parts": (lambda: (sample(build(frame), centers),),
                             lambda: (sat_pair[1](sat_pair[0](frame), centers),),
-                            {"sat_build": n_space}),
+                            {"sat_build": n_space, "sat_sample": n_data}),
         "jit_serve_parts_fused": (lambda: (fsample(prepare(frame), centers),),
                                   single_fused, {"segreduce_xy": n_data}),
     }
@@ -1737,10 +1836,12 @@ def same_on_host(what: str, got, want) -> None:
 def mesh_dryrun(kernels, device: str) -> None:
     """``dryrun_multichip(4)`` on ``device``, its launches counted: K5 per
     space block (``multi_client_step``, the SAT pair), per frame (the
-    transcode) and per distinct device (the placement); ``segreduce_xy``
-    per data shard (the fused sampler and pair).  Its outputs must equal
-    the CPU port's, and the sharded step, the SAT pair and every placement
-    must agree where they compute the same thing."""
+    transcode) and per distinct device (the placement); K7 per data shard
+    (``multi_client_step``, the SAT pair), per frame and per distinct
+    device; ``segreduce_xy`` per data shard (the fused sampler and
+    pair).  Its outputs must equal the CPU port's, and the sharded step,
+    the SAT pair and every placement must agree where they compute the
+    same thing."""
     n = MESH_DATA * MESH_SPACE
     if kernels:
         zero_counts(kernels)
@@ -1749,6 +1850,7 @@ def mesh_dryrun(kernels, device: str) -> None:
         distinct = len(set(dryrun_mesh_devices(n, device)))
         expect_counts("mesh dryrun_multichip", read_counts(kernels), {
             "sat_build": 2 * MESH_SPACE + n + distinct,
+            "sat_sample": 2 * MESH_DATA + n + distinct,
             "segreduce_xy": 2 * MESH_DATA})
     cpu = dryrun_multichip(n, "cpu")
     placed = [v for k, v in out.items() if k.startswith("placement.")]
@@ -1810,8 +1912,8 @@ def mesh_calls(kernels, cfg, device: str, mesh):
 def mesh_serve(kernels, cfg, device: str, mesh, batch_sampler: str) -> None:
     """The broadcast ``FoveaxServer(mesh=...)`` through the in-memory
     pair: frames equal to the CPU path (:func:`check_served`), launches
-    one per data shard a served tick (fused) or per space block a tick
-    (SAT)."""
+    one per data shard a served tick (fused), or K5 per space block a tick
+    and K7 per data shard a served tick (SAT)."""
     _, clients, launches = serve_broadcast(cfg, device, batch_sampler, kernels,
                                            mesh=mesh)
     if kernels:
@@ -1966,7 +2068,7 @@ def direct_timing(shape: str = "4k") -> list[dict]:
     of 50, L2 flushed, but the card kept busy for ``DIRECT_SPIN_MS``: the
     direct sampler's host dispatch outlasts phase 4's 0.2 ms): the direct
     sampler (plain PyTorch), the fused sampler (its taps, then
-    ``segreduce_xy``) and the SAT pair (K5, then the plain 4-tap sampler).
+    ``segreduce_xy``) and the SAT pair (K5, then the taps and K7).
     The bound is the least bytes: the uint8 frame read once, the uint8
     reduced frame written once."""
     pipe = make_pipeline(shape, "cuda", "direct")
@@ -2139,17 +2241,23 @@ def ladder_paths(kernels, errs, w: int, h: int, device: str = "cuda") -> dict:
     red = sat_pipe.sample_chw(sat, centers[0])
     sat_launches = read_counts(kernels) if kernels else {}
     if kernels:
-        expect_counts(f"ladder sat {shape}", sat_launches, {"sat_build": 1})
-    errs["sat_build"] = max(errs.get("sat_build", 0), check_equal(
+        expect_counts(f"ladder sat {shape}", sat_launches,
+                      {"sat_build": 1, "sat_sample": 1})
+    keep_max(errs, "sat_build", check_equal(
         "sat_build", sat, scan2d.sat_scan_plain(x0), f"at {shape}"))
+    taps = sat_taps(sat_pipe.grid, sat, centers[0][None])
+    keep_max(errs, "sat_sample", check_equal(
+        "sat_sample", red, ss.sat_sample_batch_plain(sat, *taps, "chw")[0],
+        f"at {shape}"))
     if not torch.equal(red, red0):
         raise AssertionError(f"ladder sat {shape}: differs from the fused path")
     hr, wr, _ = pipe.reduced_shape
     print(f"ladder {w}x{h} -> {wr}x{hr}: fused path {LADDER_FRAMES} chained "
           f"frames, launches {fused}, fovea exact, segreduce_xy and unwarp_xy "
           f"equal to their plain versions, restored within {worst} LSB of the "
-          f"exact unwarp; SAT path launches {sat_launches}, K5 equal to its "
-          "plain version, reduced frame equal to the fused path's", flush=True)
+          f"exact unwarp; SAT path launches {sat_launches}, K5 and K7 equal "
+          "to their plain versions, reduced frame equal to the fused path's",
+          flush=True)
     return {"fused": fused, "sat": sat_launches}
 
 
@@ -2342,12 +2450,12 @@ def phase_sharded_fuzz(kernels=None, device: str = "cuda", fuzz=SHARDED_FUZZ,
         print(f"sharded fuzz {line}  [{card}]", flush=True)
     if rc != 0 or lines[-1] != "FAILS: 0" or not any(l.startswith("wrap ") for l in lines):
         raise AssertionError(f"fuzz_sharded {' '.join(argv)}: exit code {rc}")
-    totals = {"K5": 0, "segreduce_xy": 0}
+    totals = {"K5": 0, "segreduce_xy": 0, "K7": 0}
     for line in lines:
         if " launches K5=" in line:
-            k5, seg = line.split(" launches K5=")[1].split(" segreduce_xy=")
-            totals["K5"] += int(k5)
-            totals["segreduce_xy"] += int(seg.split()[0])
+            counts = line.split(" launches ")[1].split()[:3]
+            for name, value in (c.split("=") for c in counts):
+                totals[name] += int(value)
     print(f"sharded fuzz launches in all: {totals}", flush=True)
     hostile = phase_hostile(kernels, cfg, device)
     for line in hostile:
@@ -2364,7 +2472,7 @@ WIDE = (36000, 18000)        # -> 20000x10000
 WIDE_FUSED = (34560, 17280)  # -> 19200x9600
 WIDE_FRAMES = 4
 WIDE_BLOCK_ROWS = 1024  # rows a block of the plain SAT check scans
-WIDE_BATCH = 2  # gazes of the SAT batch pair at WIDE
+WIDE_BATCHES = (3, 8)  # gazes of the SAT batch pairs at WIDE
 TILED = (70000, 256)  # three K5 tiles, the last 4,464 columns
 
 
@@ -2414,8 +2522,7 @@ def wide_kernels(errs) -> None:
     for g in GAZES:
         c = torch.tensor([g], dtype=torch.float32, device="cuda")
         # the sampler's row taps (fused_taps refuses this width)
-        pyc, pymc, _ = core_sample._axis_taps(
-            grid.gy, scaled_center(c, w, h)[1][:, None], h, wrap=False)
+        pyc, pymc = core_sample.gaze_taps(grid, h, w, c)[3:5]
         select_check(f"{w}x{h} gaze {g}", rcw, pyc[0], pymc[0])
     h = 1024
     rcw = sat_frame(36000, h, None, "cuda").permute(1, 0, 2).contiguous()
@@ -2469,41 +2576,70 @@ def wide_chain_fps(pipe, frame, centers) -> tuple[float, int]:
     return len(centers) / statistics.median(times), torch.cuda.max_memory_allocated()
 
 
-def wide_k5_timing(frame) -> dict:
-    """K5 on ``frame`` (chw): ``ms`` and ``ms_queued`` as phase 4 (median
-    of 10, L2 flushed) beside the bytes bound: the frame read once and the
-    uint32 SAT written once."""
-    _, h, w = frame.shape
-    flush = torch.empty(2**27, dtype=torch.uint8, device=frame.device)
+def wide_timing(name: str, fn, args, nbytes: int, ops: int, **extra) -> dict:
+    """``fn(*args)`` on the card: ``ms`` and ``ms_queued`` as phase 4
+    (median of 10, L2 flushed) beside the bound of ``nbytes`` and
+    ``ops``."""
+    flush = torch.empty(2**27, dtype=torch.uint8, device=args[0].device)
     spin = spin_cycles(SPIN_MS)
-    fn = lambda f: scan2d.sat_scan(f, in_layout="chw")  # noqa: E731
-    nbytes, ops = 5 * frame.numel(), 2 * frame.numel()
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
-    plan = scan2d.sat_plan(h, w)
     return {
-        "name": "sat_build", "shape": f"{w}x{h}", "tiles": plan.tiles,
-        "cuda_launches": plan.launches,
-        "ms": time_cuda(fn, (frame,), 10, flush),
-        "ms_queued": time_cuda(fn, (frame,), 10, flush, spin),
+        "name": name, **extra,
+        "ms": time_cuda(fn, args, 10, flush),
+        "ms_queued": time_cuda(fn, args, 10, flush, spin),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "ops": ops,
     }
 
 
-def wide_batch_pair(kernels, pipe, frame, centers, reduced0, block_rows: int):
-    """The serve tick's SAT pair ``batch_pair("auto")`` on ``frame`` with
-    :data:`WIDE_BATCH` gazes: K5 once and nothing else, its SAT equal to
+def wide_k5_timing(frame) -> dict:
+    """K5 on ``frame`` (chw); its bound: the frame read once and the
+    uint32 SAT written once."""
+    _, h, w = frame.shape
+    plan = scan2d.sat_plan(h, w)
+    return wide_timing(
+        "sat_build", lambda f: scan2d.sat_scan(f, in_layout="chw"), (frame,),
+        5 * frame.numel(), 2 * frame.numel(), shape=f"{w}x{h}",
+        tiles=plan.tiles, cuda_launches=plan.launches)
+
+
+def wide_k7_timing(pipe, frame, center) -> dict:
+    """K7 on the SAT of ``frame`` (chw) at one gaze, "chw" as the chained
+    path asks; its bound as phase 4's (:func:`sat_sample_bytes`)."""
+    _, h, w = frame.shape
+    sat = build_sat(frame, in_layout="chw")
+    taps = sat_taps(pipe.grid, sat, center[None])
+    k7 = lambda *a: ss.sat_sample_batch(*a, "chw")  # noqa: E731
+    return wide_timing("sat_sample", k7, (sat, *taps),
+                       sat_sample_bytes(taps, k7(sat, *taps)),
+                       sat_sample_ops(taps), shape=f"{w}x{h}")
+
+
+def wide_batch_gazes(first: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` gazes for a batch pair at WIDE: the chained path's first,
+    then :data:`BATCH_GAZES` from its second on ((0, 0) and (1, 1), both
+    at the seam, first)."""
+    rest = torch.tensor(BATCH_GAZES[1:n], dtype=torch.float32, device=first.device)
+    return torch.cat([first[None], rest])
+
+
+def wide_batch_pair(kernels, errs, pipe, frame, cs, reduced0, block_rows: int,
+                    keep: bool):
+    """The serve tick's SAT pair ``batch_pair("auto")`` on ``frame`` at the
+    gazes ``cs``: K5 and K7 once each and nothing else, its SAT equal to
     the row-blocked plain scan, row 0 equal to ``reduced0`` (the chained
-    path's first reduced frame) and each row equal to the single-gaze
-    sampler's on the same SAT.  Returns the launches and the peak tensor
-    bytes of the pair (None off the card)."""
+    path's first reduced frame) and every row to the single-gaze
+    sampler's on the same SAT; then, with the batch freed, row 0 equal to
+    ``sat_sample_batch_plain`` (kept in ``errs``).  Returns the launches,
+    the peak tensor bytes of the pair (None off the card), the SAT check's
+    error and, with ``keep``, the batch itself (else None)."""
     prepare, sample_batch = pipe.batch_pair("auto")
     if prepare != pipe.build_sat:
         raise AssertionError("batch_pair('auto'): not the SAT pair")
+    _, h, w = frame.shape
     hwc = frame.permute(1, 2, 0).contiguous()
-    cs = torch.stack(centers[:WIDE_BATCH])
     if kernels:
         zero_counts(kernels)
         torch.cuda.empty_cache()
@@ -2513,28 +2649,59 @@ def wide_batch_pair(kernels, pipe, frame, centers, reduced0, block_rows: int):
     launches = read_counts(kernels) if kernels else {}
     peak = torch.cuda.max_memory_allocated() if kernels else None
     if kernels:
-        expect_counts("wide batch pair", launches, {"sat_build": 1})
+        expect_counts(f"wide batch pair, {len(cs)} gazes", launches,
+                      {"sat_build": 1, "sat_sample": 1})
     del hwc
     err = wide_sat_check(frame, sat, block_rows)
     if not torch.equal(batch[0], reduced0.permute(1, 2, 0)):
-        raise AssertionError("wide batch pair: row 0 differs from the chained "
-                             "path's reduced frame")
+        raise AssertionError(f"wide batch pair, {len(cs)} gazes: row 0 differs "
+                             "from the chained path's reduced frame")
     for i, c in enumerate(cs):
         if not torch.equal(batch[i], pipe.sample(sat, c)):
-            raise AssertionError(f"wide batch pair: row {i} differs from the "
-                                 "single-gaze sampler's")
-    return launches, peak, err
+            raise AssertionError(f"wide batch pair, {len(cs)} gazes: row {i} "
+                                 "differs from the single-gaze sampler's")
+    row0 = batch[0].clone()
+    kept = batch if keep else None
+    del batch
+    plain = ss.sat_sample_batch_plain(sat, *sat_taps(pipe.grid, sat, cs[:1]), "hwc")
+    keep_max(errs, "sat_sample", check_equal(
+        "sat_sample", row0, plain[0], f"at {w}x{h}, batch of {len(cs)}, row 0"))
+    return launches, peak, err, kept
+
+
+def wide_direct_batch(cfg, frame, cs, sat_batch, device: str) -> str:
+    """``batch_pair("direct")`` on ``frame`` at the gazes ``cs``: every
+    row equal to the SAT batch's (``sat_batch``), or, on the card, the
+    ``torch.cuda.OutOfMemoryError`` it raised, which is a finding, not a
+    failure.  Returns what it gave."""
+    prepare, sample_batch = FoveationPipeline(
+        cfg, sampler="direct", device=device).batch_pair("direct")
+    if device != "cpu":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        got = sample_batch(prepare(frame.permute(1, 2, 0).contiguous()), cs)
+    except torch.cuda.OutOfMemoryError as e:
+        return (f"torch.cuda.OutOfMemoryError after a peak of "
+                f"{torch.cuda.max_memory_allocated()} tensor bytes: "
+                f"{str(e).splitlines()[0]}")
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+    if not torch.equal(got, sat_batch):
+        raise AssertionError(f"wide direct batch pair, {len(cs)} gazes: differs "
+                             "from the SAT batch")
+    return f"ran, peak {peak} tensor bytes, rows equal to the SAT batch's"
 
 
 def wide_paths(kernels, errs, heights=(WIDE[1], WIDE_FUSED[1]),
-               device: str = "cuda", block_rows: int = WIDE_BLOCK_ROWS) -> dict:
+               device: str = "cuda", block_rows: int = WIDE_BLOCK_ROWS,
+               batches=WIDE_BATCHES) -> dict:
     """The SAT path at WIDE's width over :data:`WIDE_FRAMES` chained gazes
     with every unwarp held to its plain version and the exact unwarp, the
-    SAT batch pair, the direct sampler; then WIDE_FUSED's SAT and fused
-    samplers at one gaze against each other and the plain fused sampler
-    (module docstring, phase 15).  ``heights`` cut the two frames' rows
-    for a rehearsal on the CPU, where ``kernels`` is None and nothing is
-    timed."""
+    SAT batch pairs (``batches`` gazes each), the direct batch pair at the
+    first batch's gazes, the direct sampler; then WIDE_FUSED's SAT and fused samplers at one gaze
+    against each other and the plain fused sampler (module docstring,
+    phase 15).  ``heights`` cut the two frames' rows for a rehearsal on the
+    CPU, where ``kernels`` is None and nothing is timed."""
     report = {}
     card = device != "cpu"
     w, h = WIDE[0], heights[0]
@@ -2551,7 +2718,7 @@ def wide_paths(kernels, errs, heights=(WIDE[1], WIDE_FUSED[1]),
     launches = read_counts(kernels) if kernels else {}
     if kernels:
         expect_counts(f"wide sat {w}x{h}", launches,
-                      {"sat_build": WIDE_FRAMES, "unwarp_xy": WIDE_FRAMES})
+                      {name: WIDE_FRAMES for name in PATH_KERNELS["sat"]})
     if last.shape != frame.shape or not bool(fovea_ok.all()):
         raise AssertionError(f"wide sat {w}x{h}: restored {tuple(last.shape)}, "
                              f"fovea exact {fovea_ok.tolist()}")
@@ -2563,11 +2730,18 @@ def wide_paths(kernels, errs, heights=(WIDE[1], WIDE_FUSED[1]),
         worst = max(worst, unwarp_plain_check(errs, red, out, c,
                                               f"at {w}x{h}, frame {i}"))
     del restored, reduced[1:]
-    if card:
-        torch.cuda.empty_cache()
-    batch, batch_peak, err = wide_batch_pair(kernels, pipe, frame, centers,
-                                             reduced[0], block_rows)
-    keep_max(errs, "sat_build", err)
+    batch_launches, batch_peaks = {}, {}
+    for n in batches:
+        if card:
+            torch.cuda.empty_cache()
+        cs = wide_batch_gazes(centers[0], n)
+        batch_launches[n], batch_peaks[n], err, kept = wide_batch_pair(
+            kernels, errs, pipe, frame, cs, reduced[0], block_rows,
+            keep=n == batches[0])
+        keep_max(errs, "sat_build", err)
+        if kept is not None:
+            direct_batch = wide_direct_batch(cfg, frame, cs, kept, device)
+        del kept
     if card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2579,12 +2753,14 @@ def wide_paths(kernels, errs, heights=(WIDE[1], WIDE_FUSED[1]),
     print(f"wide {w}x{h} -> {wr}x{hr}: auto -> sat, {WIDE_FRAMES} chained "
           f"frames, launches {launches}, fovea exact, every unwarp_xy output "
           f"equal to its plain version and within {worst} LSB of the exact "
-          f"unwarp; batch_pair('auto') with {WIDE_BATCH} gazes launches "
-          f"{batch}, its SAT equal to the plain scan in {block_rows}-row "
-          "blocks, its rows equal to the chained and single-gaze reduced "
-          "frames; first reduced frame equal to the direct sampler's",
-          flush=True)
-    report.update(sat=launches, batch=batch)
+          "unwarp; batch_pair('auto') launches by gaze count "
+          f"{batch_launches}, its SAT equal to the plain scan in "
+          f"{block_rows}-row blocks, its rows equal to the chained and "
+          "single-gaze reduced frames, row 0 to sat_sample_batch_plain; "
+          "first reduced frame equal to the direct sampler's", flush=True)
+    print(f"wide {w}x{h} batch_pair('direct') with {batches[0]} gazes: "
+          f"{direct_batch}", flush=True)
+    report.update(sat=launches, batch=batch_launches, direct_batch=direct_batch)
     if card:
         direct_peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
@@ -2595,14 +2771,17 @@ def wide_paths(kernels, errs, heights=(WIDE[1], WIDE_FUSED[1]),
                        what="wide sat path frame")
         torch.cuda.empty_cache()
         k5 = wide_k5_timing(frame)
+        torch.cuda.empty_cache()
+        k7 = wide_k7_timing(pipe, frame, centers[0])
         line = card_line()
         print(f"wide path sat {w}x{h}: {fps:.3f} fps ({1e3 / fps:.4f} ms/frame, "
               f"{WIDE_FRAMES} chained frames); peak tensor bytes: SAT path "
-              f"{sat_peak}, batch pair ({WIDE_BATCH} gazes) {batch_peak}, direct "
+              f"{sat_peak}, batch pair by gaze count {batch_peaks}, direct "
               f"sampler (one gaze) {direct_peak}  [{line}]", flush=True)
-        print(f"wide timing: {json.dumps(k5)}  [{line}]", flush=True)
-        report.update(fps=fps, sat_peak=sat_peak, batch_peak=batch_peak,
-                      direct_peak=direct_peak, k5=k5)
+        for row in (k5, k7):
+            print(f"wide timing: {json.dumps(row)}  [{line}]", flush=True)
+        report.update(fps=fps, sat_peak=sat_peak, batch_peaks=batch_peaks,
+                      direct_peak=direct_peak, k5=k5, k7=k7)
     del frame, reduced
     if card:
         torch.cuda.empty_cache()
@@ -2622,7 +2801,7 @@ def wide_paths(kernels, errs, heights=(WIDE[1], WIDE_FUSED[1]),
         runs[name] = (out, read_counts(kernels) if kernels else {})
         if kernels:
             expect_counts(f"wide {name} {w}x{h}", runs[name][1],
-                          {PATH_KERNELS[name][0]: 1})
+                          {k: 1 for k in PATH_KERNELS[name] if k != "unwarp_xy"})
     if not torch.equal(runs["sat"][0], runs["fused"][0]):
         raise AssertionError(f"wide {w}x{h}: the SAT path differs from the fused path")
     if card:
@@ -2666,7 +2845,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    logs = build(["segreduce", "unwarp", "scan2d"])
+    logs = build(list(SOURCES))
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -2676,6 +2855,7 @@ def main() -> int:
     kernels = kernel_table()
     errs = phase_compare("cuda")
     phase_compare_sat(errs)
+    phase_compare_sat_sample(errs)
     fused_launches = phase_main_path(kernels, "fused")
     sat_launches = phase_main_path(kernels, "sat")
     phase_serve_pair(kernels)

@@ -40,8 +40,8 @@ import functools
 import numpy as np
 import torch
 
-from foveax_torch.core.logrect import LogRectGrid, scaled_center
-from foveax_torch.core.sample import _axis_taps, _exact_box_div, longest_run
+from foveax_torch.core.logrect import LogRectGrid
+from foveax_torch.core.sample import _exact_box_div, gaze_taps, longest_run
 
 # Minimum step-1 run worth a crop band (as in the JAX package); tiny grids
 # take one box band per axis, which is exact at any size.
@@ -115,9 +115,9 @@ def _sample_direct(frame, grid: LogRectGrid, centers, wrap_x: bool):
     _, hs, ws = frame.shape
     n = centers.shape[0]
     dev = frame.device
-    cx, cy = scaled_center(centers, ws, hs)
-    pxc, pxmc, valid_x = _axis_taps(grid.gx, cx[:, None], ws, wrap=wrap_x)
-    pyc, pymc, valid_y = _axis_taps(grid.gy, cy[:, None], hs, wrap=False)
+    pxc, pxmc, valid_x, pyc, pymc, valid_y = gaze_taps(
+        grid, hs, ws, centers, wrap_x=wrap_x
+    )
     xcrop, xbox = _axis_split(grid.gx_host, ws, dev)
     ycrop, ybox = _axis_split(grid.gy_host, hs, dev)
     wo = grid.out_width

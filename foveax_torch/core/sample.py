@@ -8,11 +8,13 @@ output cell (j, i) is the source interval ``(pmc, pc]`` on each axis
 enters as a runtime tensor added to the grid, so a moving gaze rebuilds
 nothing.
 
-:func:`sample_rect_from_sat` is the SAT path's 4-tap sampler.  The JAX
-package's shared-tap gathers (``q``/``fix`` of its ``_axis_taps``, the
-``top_k`` fixup and the uint16 row bands) halve the traffic through the
-TPU's slow gather engine; the port reaches the same integers with plain
-indexed gathers, so those outputs are not carried over.
+:func:`sample_rect_from_sat` is the SAT path's 4-tap sampler: the taps
+here, the box means in K7 (``kernels/sat_sample.py``), which reads four
+SAT words per output value.  The JAX package's shared-tap gathers
+(``q``/``fix`` of its ``_axis_taps``, the ``top_k`` fixup and the uint16
+row bands) halve the traffic through the TPU's slow gather engine; the
+port reaches the same integers without them, so those outputs are not
+carried over.
 
 The CLI-only samplers follow: :func:`sample_rect_360_from_sat` (the
 reference's second SAT kernel, with its own 360 indexing),
@@ -28,14 +30,8 @@ import numpy as np
 import torch
 
 from foveax_torch.core.logrect import LogRectGrid, delta64, scaled_center
+from foveax_torch.kernels.sat_sample import _exact_box_div, sat_sample_batch
 from foveax_torch.kernels.scan2d import MASK32
-
-
-def _exact_box_div(box: torch.Tensor, rect: torch.Tensor) -> torch.Tensor:
-    """Exact ``floor(box / rect)`` for non-negative integer boxes and
-    positive rects (what the JAX package's float estimate plus one-step
-    fixup computes); integer floor division is exact as it stands."""
-    return torch.div(box, rect, rounding_mode="floor")
 
 
 def longest_run(mask) -> tuple[int, int]:
@@ -87,6 +83,17 @@ def _axis_taps(g: torch.Tensor, c: torch.Tensor, dim: int, *, wrap: bool):
     return pc.to(torch.int32), pmc.to(torch.int32), valid
 
 
+def gaze_taps(grid: LogRectGrid, hs: int, ws: int, centers: torch.Tensor, *,
+              wrap_x: bool = True):
+    """Per-gaze taps of an Hs x Ws source for (N, 2) float32 centres:
+    ``(pxc, pxmc, valid_x)``, each (N, Wr), then ``(pyc, pymc,
+    valid_y)``, each (N, Hr); ``wrap_x`` wraps the column axis."""
+    cx, cy = scaled_center(centers, ws, hs)  # (N,)
+    pxc, pxmc, valid_x = _axis_taps(grid.gx, cx[:, None], ws, wrap=wrap_x)
+    pyc, pymc, valid_y = _axis_taps(grid.gy, cy[:, None], hs, wrap=False)
+    return pxc, pxmc, valid_x, pyc, pymc, valid_y
+
+
 def sample_rect_from_sat(
     sat: torch.Tensor,
     grid: LogRectGrid,
@@ -103,40 +110,21 @@ def sample_rect_from_sat(
     N gazes against the one SAT, which puts a leading N on the result.
     ``wrap_x`` enables the 360-degree horizontal wrap.  Invalid texels are
     0.  ``taps`` "shared" or "paired" name the JAX package's two gather
-    schemes; both give these integers, which are computed here by two row
-    gathers and four column gathers on the SAT's int32 view, the 4-tap
-    difference in int64 mod 2^32 and the exact box division.
+    schemes; both give these integers, which K7
+    (:func:`~foveax_torch.kernels.sat_sample.sat_sample_batch`) computes
+    from the per-axis taps: four SAT words per output value, the 4-tap
+    difference mod 2^32 and the exact box division (on a CPU SAT its
+    plain version).
     """
     if taps not in ("shared", "paired"):
         raise ValueError(f"taps {taps!r}: expected 'shared' or 'paired'")
     _, hs, ws = sat.shape
-    c = center.reshape(-1, 2)
-    n = c.shape[0]
-    cx, cy = scaled_center(c, ws, hs)  # (N,)
-    pxc, pxmc, valid_x = _axis_taps(grid.gx, cx[:, None], ws, wrap=wrap_x)
-    pyc, pymc, valid_y = _axis_taps(grid.gy, cy[:, None], hs, wrap=False)
-    ho, wo = pyc.shape[1], pxc.shape[1]
-
-    s = sat.view(torch.int32)
-
-    def rows(idx):  # (3, N, Ho, Ws) int32
-        return s.index_select(1, idx.reshape(-1)).reshape(3, n, ho, ws)
-
-    def cols(r, idx):  # (3, N, Ho, Wo), the uint32 values mod 2^32
-        idx = idx.long()[None, :, None, :].expand(3, n, ho, wo)
-        return r.gather(3, idx).to(torch.int64)
-
-    hi, lo = rows(pyc), rows(pymc)
-    box = (
-        cols(hi, pxc) - cols(lo, pxc) - cols(hi, pxmc) + cols(lo, pxmc)
-    ) & MASK32  # a true box sum is below 2^32
-    dy = (pyc - pymc).long()[None, :, :, None]
-    rect = dy * (pxc - pxmc).long()[None, :, None, :]
-    vals = _exact_box_div(box, rect)
-    valid = valid_y[None, :, :, None] & valid_x[None, :, None, :]
-    out = torch.where(valid, vals, 0).to(torch.uint8)
-    order = (1, 0, 2, 3) if out_layout == "chw" else (1, 2, 3, 0)
-    out = out.permute(order).contiguous()
+    pxc, pxmc, valid_x, pyc, pymc, valid_y = gaze_taps(
+        grid, hs, ws, center.reshape(-1, 2), wrap_x=wrap_x
+    )
+    out = sat_sample_batch(
+        sat, pxmc, pxc, valid_x, pymc, pyc, valid_y, out_layout
+    )
     return out if center.dim() == 2 else out[0]
 
 

@@ -26,6 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+# Every source under csrc/, as build() and load() name them.
+SOURCES = ("segreduce", "unwarp", "scan2d", "sat_sample")
 
 # No fast math: the unwarp's float step must round exactly as the JAX
 # package's does (the sources also use __fmul_rn/__fadd_rn there).

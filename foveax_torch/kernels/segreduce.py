@@ -29,8 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from foveax_torch.core.logrect import LogRectGrid, scaled_center
-from foveax_torch.core.sample import _axis_taps, _exact_box_div
+from foveax_torch.core.logrect import LogRectGrid
+from foveax_torch.core.sample import _exact_box_div, gaze_taps
 from foveax_torch.kernels.build import I, P, Kernel, check_tensor
 
 XY_PASS = Kernel("segreduce", "fvx_segment_reduce_xy", [P] * 8 + [I] * 6)
@@ -252,10 +252,7 @@ def fused_taps(grid: LogRectGrid, frame: torch.Tensor, centers: torch.Tensor,
             f"{xy_shared_bytes(grid.source_width, grid.out_width)} bytes)"
         )
     _, hs, ws = frame.shape
-    cx, cy = scaled_center(centers, ws, hs)  # (N,)
-    pxc, pxmc, valid_x = _axis_taps(grid.gx, cx[:, None], ws, wrap=wrap_x)
-    pyc, pymc, valid_y = _axis_taps(grid.gy, cy[:, None], hs, wrap=False)
-    return pxc, pxmc, valid_x, pyc, pymc, valid_y
+    return gaze_taps(grid, hs, ws, centers, wrap_x=wrap_x)
 
 
 def sample_rect_fused_batch(

@@ -17,7 +17,7 @@ tiles past 32,768).  Per shape, for a random gaze, (0, 0),
 (1, 1) and the edge-clamped (0.997, 0.003):
 
 * ``segreduce_xy`` bit-equal to its plain version and to the SAT route
-  (K5, then the plain 4-tap sampler: an independent computation);
+  (K5, then the 4-tap sampler K7: an independent computation);
 * ``unwarp_xy`` on that reduced frame bit-equal to ``unwarp_xy_plain``,
   within 1 LSB of the exact unwarp, and for a gaze whose fovea lies inside
   the frame the fovea of the roundtrip equal to the source (a shape outside
@@ -80,8 +80,8 @@ def eligible_pipeline(rng, max_width: int, max_height: int, wide: bool, device):
 
 def sat_route(frame: torch.Tensor, grid: LogRectGrid,
               centers: torch.Tensor) -> torch.Tensor:
-    """The reference sampler: K5 on the (3, H, W) frame, then the plain
-    4-tap sampler; (N, 3, Hr, Wr) for (N, 2) centres, (3, Hr, Wr) for one."""
+    """The reference sampler: K5 on the (3, H, W) frame, then the 4-tap
+    sampler K7; (N, 3, Hr, Wr) for (N, 2) centres, (3, Hr, Wr) for one."""
     sat = scan2d.sat_scan(frame, in_layout="chw")
     return sample_rect_from_sat(sat, grid, centers, out_layout="chw")
 

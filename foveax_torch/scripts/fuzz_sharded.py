@@ -23,7 +23,9 @@ On the card each sharded output is also held to the same call on a mesh of
 CPU entries, where every kernel is its plain version, and the launches are
 counted: K5 once per space block in ``sharded_build_sat`` and again in
 ``multi_client_step``, once for the single-device ``build_sat``;
-``segreduce_xy`` once per data shard where the fused sampler runs.
+``segreduce_xy`` once per data shard where the fused sampler runs; K7 (the
+SAT sampler) once per gaze of the single-device reference and once per
+data shard in ``sharded_sample_batch`` and again in ``multi_client_step``.
 Source widths run from 128 to ``--max-width`` and are never a multiple of
 16; heights are ``n_space * k`` up to ``--max-height`` with ``k`` never a
 multiple of K5's 32-row band, so every space block ends inside a band.
@@ -54,6 +56,7 @@ from foveax_torch.core.sample import sample_rect_from_sat
 from foveax_torch.core.sat import build_sat
 from foveax_torch.core.unwarp import unwarp_rect
 from foveax_torch.device import resolve_device
+from foveax_torch.kernels import sat_sample as ss
 from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
 from foveax_torch.parallel import make_mesh, multi_client_step
@@ -140,21 +143,26 @@ def single_device(frame, centers, grid) -> tuple[torch.Tensor, ...]:
 
 def read_launches() -> dict[str, int]:
     """The kernels' launch counters (host-side, counted at each launch)."""
-    return {"K5": scan2d.SAT_BUILD.launches, "segreduce_xy": sr.XY_PASS.launches}
+    return {"K5": scan2d.SAT_BUILD.launches, "segreduce_xy": sr.XY_PASS.launches,
+            "K7": ss.SAT_SAMPLE.launches}
 
 
 def zero_launches() -> None:
-    scan2d.SAT_BUILD.launches = sr.XY_PASS.launches = 0
+    scan2d.SAT_BUILD.launches = sr.XY_PASS.launches = ss.SAT_SAMPLE.launches = 0
 
 
-def expected_launches(n_data: int, n_space: int, fused: bool, device) -> dict[str, int]:
+def expected_launches(n_data: int, n_space: int, n_gazes: int, fused: bool,
+                      device) -> dict[str, int]:
     """K5: a space block each in ``sharded_build_sat`` and
     ``multi_client_step``, one for the single-device SAT; ``segreduce_xy``
-    a data shard each where the fused sampler runs; none on the CPU,
+    a data shard each where the fused sampler runs; K7: a gaze each for
+    the single-device reference, a data shard each in
+    ``sharded_sample_batch`` and ``multi_client_step``; none on the CPU,
     where every kernel is its plain version."""
     if device.type == "cpu":
-        return {"K5": 0, "segreduce_xy": 0}
-    return {"K5": 2 * n_space + 1, "segreduce_xy": n_data if fused else 0}
+        return {"K5": 0, "segreduce_xy": 0, "K7": 0}
+    return {"K5": 2 * n_space + 1, "segreduce_xy": n_data if fused else 0,
+            "K7": n_gazes + 2 * n_data}
 
 
 def check_shape(case: dict, device: torch.device, devices) -> tuple[bool, str]:
@@ -181,13 +189,14 @@ def check_shape(case: dict, device: torch.device, devices) -> tuple[bool, str]:
             frame.cpu(), centers.cpu(), make_grid(rw, rh, fw, fh, cpu),
             make_mesh(n_space, n_data, devices=mesh_devices(cpu)), fused)
         plain = str(all(_equal(v, ref[k]) for k, v in got.items()))
-    launches_ok = launches == expected_launches(n_data, n_space, fused, device)
+    launches_ok = launches == expected_launches(n_data, n_space, len(centers),
+                                                fused, device)
     ok = all(eq.values()) and plain != "False" and launches_ok
     report = (f"{fw}x{fh} r{rw}x{rh} mesh {n_data}x{n_space} N={len(centers)}: "
               f"sat={eq['sat']} sample={eq['sample']} mc={eq['mc']} "
               f"unwarp={eq['unwarp']} fused={eq.get('fused')} plain={plain} "
-              f"launches K5={launches['K5']} segreduce_xy={launches['segreduce_xy']}"
-              f"{'' if launches_ok else ' (unexpected)'}")
+              f"launches K5={launches['K5']} segreduce_xy={launches['segreduce_xy']} "
+              f"K7={launches['K7']}{'' if launches_ok else ' (unexpected)'}")
     return ok, report
 
 
@@ -215,13 +224,14 @@ def check_wrap(w: int, h: int, device: torch.device, devices) -> tuple[bool, str
         plain = str(_equal(sat, scan2d.sat_scan_plain(frame.permute(2, 0, 1))))
     want = all255_sat(h, w, device)
     closed = all(torch.equal(scan2d.as_int64(sat[c]), want) for c in range(3))
-    expected = {"K5": 0 if device.type == "cpu" else MESH_SIZE + 1, "segreduce_xy": 0}
+    expected = {"K5": 0 if device.type == "cpu" else MESH_SIZE + 1,
+                "segreduce_xy": 0, "K7": 0}
     launches_ok = launches == expected
     ok = sat_eq and closed and plain != "False" and launches_ok
     return ok, (f"wrap all-255 {w}x{h} mesh 1x{MESH_SIZE}: 255*W*H = {255 * w * h} "
                 f"> 2^32, sat={sat_eq} closed_form={closed} plain={plain} "
-                f"launches K5={launches['K5']} segreduce_xy={launches['segreduce_xy']}"
-                f"{'' if launches_ok else ' (unexpected)'}")
+                f"launches K5={launches['K5']} segreduce_xy={launches['segreduce_xy']} "
+                f"K7={launches['K7']}{'' if launches_ok else ' (unexpected)'}")
 
 
 def parse_wrap(text: str) -> tuple[int, int] | None:

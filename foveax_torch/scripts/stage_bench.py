@@ -18,8 +18,8 @@ card beside it the device ms per frame, the sum of the loop's kernel times
 ms per frame, the union of those kernels' intervals (the host clock's ms
 less the busy ms is the time the device waited on the host).
 
-Stages: ``sat`` the SAT build (K5 on the card), ``sample`` the plain 4-tap
-SAT sampler, ``fused`` the fused sampler's taps then ``segreduce_xy``,
+Stages: ``sat`` the SAT build (K5 on the card), ``sample`` the 4-tap SAT
+sampler (its taps, then K7 on the card), ``fused`` the fused sampler's taps then ``segreduce_xy``,
 ``direct`` the SAT-free direct sampler (plain PyTorch), ``unwarp`` the
 unwarp at ``--precision`` (``"auto"``: ``unwarp_xy`` where its contract
 holds).  The loop builders take ``(pipeline, frame, centers)`` and return
@@ -89,7 +89,7 @@ def sat_loop(pipeline: FoveationPipeline, frame: torch.Tensor,
 
 def sample_loop(pipeline: FoveationPipeline, frame: torch.Tensor,
                 centers: torch.Tensor) -> Step:
-    """The plain 4-tap sampler on the frame's SAT, built once."""
+    """The 4-tap SAT sampler on the frame's SAT, built once."""
     sat = build_sat(frame, in_layout="chw")
 
     def step(i: int, acc: torch.Tensor):

@@ -159,9 +159,9 @@ def main(argv=None) -> int:
     if "cuda" in (args.server_device, args.client_device):
         # Built once here, so that neither process runs nvcc (or waits on
         # the other's build) while the stream runs.
-        from foveax_torch.kernels.build import build
+        from foveax_torch.kernels.build import SOURCES, build
 
-        build(["segreduce", "unwarp", "scan2d"])
+        build(list(SOURCES))
 
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")

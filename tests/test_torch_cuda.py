@@ -4,7 +4,9 @@ input checks and its launch count; the SAT and direct pipelines against the
 fused one; the streaming server and client on the card; the sharded
 functions and the mesh server of chip_smoke.py's phase 9; K5,
 ``segreduce_xy`` and ``unwarp_xy`` at 16K and the serving soak's CUDA
-memory (phases 11 and 13).
+memory (phases 11 and 13); K7, the SAT path's 4-tap sampler, on the
+path's taps at 1080p and 4K, random seam taps, wrapped SAT words and odd
+widths, with its checks and its count.
 
 These tests need a CUDA device and skip without one.  On the card, run
 
@@ -21,9 +23,11 @@ import chip_smoke
 from foveax_torch import FoveaxConfig, FoveationPipeline
 from foveax_torch.config import reduced_dim
 from foveax_torch.core.logrect import make_grid, scaled_center
+from foveax_torch.core import sample as core_sample
 from foveax_torch.core.sample import _axis_taps
 from foveax_torch.io.wirecodec import available_wire_codecs
 from foveax_torch.kernels import fused_select as fs
+from foveax_torch.kernels import sat_sample as ss
 from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
 from foveax_torch.kernels import unwarp as uw
@@ -292,21 +296,22 @@ def test_degrade_to_sat_on_the_card():
         FoveationPipeline(small, sampler="fused")
     rng = np.random.default_rng(4)
     frame = torch.from_numpy(rng.integers(0, 256, (1080, 1920, 3), np.uint8))
-    before = scan2d.SAT_BUILD.launches
+    before = (scan2d.SAT_BUILD.launches, ss.SAT_SAMPLE.launches)
     got = pipe.foveate(frame.cuda(), pipe.center(0.3, 0.6))
     torch.cuda.synchronize()
-    assert scan2d.SAT_BUILD.launches == before + 1
+    assert (scan2d.SAT_BUILD.launches, ss.SAT_SAMPLE.launches) == (
+        before[0] + 1, before[1] + 1)
     cpu = FoveationPipeline(small, device="cpu")
     assert torch.equal(got.cpu(), cpu.foveate(frame, cpu.center(0.3, 0.6)))
     # Its delta steps exceed 255: "auto" unwarps exactly, with no kernel.
     chw = frame.permute(2, 0, 1).contiguous()
-    before = (scan2d.SAT_BUILD.launches, uw.UNWARP_XY.launches)
+    before = (scan2d.SAT_BUILD.launches, ss.SAT_SAMPLE.launches,
+              uw.UNWARP_XY.launches)
     c = pipe.center(0.3, 0.6)
     out = pipe.unwarp_auto_chw(pipe.foveate_chw(chw.cuda(), c), c)
     torch.cuda.synchronize()
-    assert (scan2d.SAT_BUILD.launches, uw.UNWARP_XY.launches) == (
-        before[0] + 1, before[1]
-    )
+    assert (scan2d.SAT_BUILD.launches, ss.SAT_SAMPLE.launches,
+            uw.UNWARP_XY.launches) == (before[0] + 1, before[1] + 1, before[2])
     c = cpu.center(0.3, 0.6)
     assert torch.equal(out.cpu(), cpu.unwarp_auto_chw(cpu.foveate_chw(chw, c), c))
 
@@ -314,13 +319,16 @@ def test_degrade_to_sat_on_the_card():
 def test_sat_launches_count_once(pipe, frame):
     c = pipe.center(0.5, 0.5)
     sat_pipe = FoveationPipeline(CFG, sampler="sat")
-    before = (scan2d.SAT_BUILD.launches, fs.SELECT_ROWS.launches)
+    before = (scan2d.SAT_BUILD.launches, fs.SELECT_ROWS.launches,
+              ss.SAT_SAMPLE.launches, sr.XY_PASS.launches)
     sat_pipe.foveate_chw(frame, c)
     idx = torch.arange(0, 512, 7, dtype=torch.int32, device="cuda")
     fs.sat_select_rows(frame.permute(1, 0, 2).contiguous(), idx, idx)
     torch.cuda.synchronize()
     assert scan2d.SAT_BUILD.launches - before[0] == 1
     assert fs.SELECT_ROWS.launches - before[1] == 1
+    assert ss.SAT_SAMPLE.launches - before[2] == 1
+    assert sr.XY_PASS.launches == before[3]
 
 
 def test_sat_wrappers_check_inputs(pipe, frame):
@@ -343,6 +351,98 @@ def test_sat_wrappers_check_inputs(pipe, frame):
 def _sat_frame(h: int, w: int, seed: int) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, 256, (3, h, w), np.uint8)).cuda()
+
+
+def _k7_equal(sat, taps) -> None:
+    """K7 against its plain version in both layouts."""
+    for layout in ss.LAYOUTS:
+        _equal(ss.sat_sample_batch(sat, *taps, layout),
+               ss.sat_sample_batch_plain(sat, *taps, layout))
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("shape", ["1080p", "4k"])
+def test_sat_sample_matches_plain(pipe, shape, n):
+    """K7 on K5's SAT of a random frame with the path's taps for 1 and 8
+    gazes (the batch has the seam gazes), both layouts."""
+    p = chip_smoke.make_pipeline(shape, "cuda")
+    sat = scan2d.sat_scan(chip_smoke.make_frame(p, 18), in_layout="chw")
+    centers = torch.tensor(chip_smoke.BATCH_GAZES[-n:], dtype=torch.float32,
+                           device="cuda")
+    _k7_equal(sat, chip_smoke.sat_taps(p.grid, sat, centers))
+
+
+@pytest.mark.parametrize("case", ["random taps", "random taps, offset words"])
+def test_sat_sample_random_taps(pipe, case):
+    """K7 on random in-contract taps at 4K, three gazes: non-monotone
+    columns as at the seam, every third interval ``pmc = pc - 1``; then
+    over the SAT's words plus random per-row and per-column offsets mod
+    2^32, which cancel in every box but not in the 4-tap difference's
+    words."""
+    p = chip_smoke.make_pipeline("4k", "cuda")
+    sat = scan2d.sat_scan(chip_smoke.make_frame(p, 19), in_layout="chw")
+    rng = np.random.default_rng(19)
+    args = chip_smoke.sat_sample_extra_cases(rng, sat, 3, 2144, 1200)[case]
+    pxc = args[2]
+    assert bool((pxc[:, 1:] < pxc[:, :-1]).any())
+    assert bool((pxc[:, 1::3] - args[1][:, 1::3] == 1).all())
+    _k7_equal(args[0], args[1:])
+
+
+def test_sat_sample_all_255_wraps(pipe):
+    """All-255 8K: the SAT's words wrap past 2^32; every valid cell of K7's
+    output is 255."""
+    h, w = 4320, 7680
+    sat = scan2d.sat_scan(torch.full((3, h, w), 255, dtype=torch.uint8,
+                                     device="cuda"), in_layout="chw")
+    assert int(scan2d.as_int64(sat[:, -1, -1])[0]) == 255 * h * w % 2**32
+    p = FoveationPipeline(FoveaxConfig().with_source(w, h))
+    centers = torch.tensor([(0.0, 0.0), (1.0, 1.0), (0.999, 0.001)],
+                           dtype=torch.float32, device="cuda")
+    taps = chip_smoke.sat_taps(p.grid, sat, centers)
+    _k7_equal(sat, taps)
+    out = ss.sat_sample_batch(sat, *taps, "chw")
+    assert set(torch.unique(out).tolist()) == {0, 255}
+    del sat, out
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("wr", [560, 1001])
+def test_sat_sample_odd_width(pipe, wr):
+    """K7 at 1000x500 -> 560x288 with the path's taps, and random taps at
+    output width 1001."""
+    w, h, _, hr = chip_smoke.ODD_SHAPE
+    sat = scan2d.sat_scan(_sat_frame(h, w, 20), in_layout="chw")
+    if wr == 560:
+        centers = torch.tensor(CENTERS, dtype=torch.float32, device="cuda")
+        taps = chip_smoke.sat_taps(make_grid(wr, hr, w, h, "cuda"), sat, centers)
+    else:
+        rng = np.random.default_rng(20)
+        taps = chip_smoke.sat_sample_extra_cases(rng, sat, 2, wr, hr)["random taps"][1:]
+    _k7_equal(sat, taps)
+
+
+def test_sat_sample_checks_and_counts(pipe, frame):
+    """K7's wrapper raises on what it does not take, and
+    ``sample_rect_from_sat`` on a card SAT launches it once a call, for
+    one gaze or eight, and nothing else."""
+    sat = scan2d.sat_scan(frame, in_layout="chw")
+    centers = torch.tensor(CENTERS, dtype=torch.float32, device="cuda")
+    taps = chip_smoke.sat_taps(pipe.grid, sat, centers)
+    with pytest.raises(ValueError, match="pxc: on cpu"):
+        ss.sat_sample_batch(sat, taps[0], taps[1].cpu(), *taps[2:])
+    with pytest.raises(ValueError, match="sat: must be contiguous"):
+        ss.sat_sample_batch(sat.transpose(1, 2).contiguous().transpose(1, 2),
+                            *taps)
+    with pytest.raises(ValueError, match="valid_y: expected torch.bool"):
+        ss.sat_sample_batch(sat, *taps[:5], taps[5].int())
+    kernels = chip_smoke.kernel_table()
+    for cs in (centers[0], centers):
+        chip_smoke.zero_counts(kernels)
+        out = core_sample.sample_rect_from_sat(sat, pipe.grid, cs, out_layout="chw")
+        chip_smoke.expect_counts("sample_rect_from_sat", chip_smoke.read_counts(kernels),
+                                 {"sat_sample": 1})
+        assert out.shape == (*cs.shape[:-1], 3, 288, 1072)
 
 
 @pytest.mark.parametrize(

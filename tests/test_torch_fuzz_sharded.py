@@ -141,7 +141,7 @@ def test_phase_sharded_fuzz_on_cpu():
         device="cpu", fuzz=SMALL[:-2], wrap=(4112, 4104), cfg=cfg)
     assert report["fuzz"][-1] == "FAILS: 0"
     assert report["fuzz"][-2].startswith("wrap all-255 4112x4104 mesh 1x8")
-    assert report["launches"] == {"K5": 0, "segreduce_xy": 0}
+    assert report["launches"] == {"K5": 0, "segreduce_xy": 0, "K7": 0}
     init, sample, unwarp = report["hostile"]
     assert "serve/client.py" in init and "stream is 64x32" in init
     assert "serve/client.py" in sample and "decoded sample is 64x32" in sample

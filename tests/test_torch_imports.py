@@ -51,7 +51,8 @@ def test_port_and_smoke_import_neither_jax_nor_foveax():
         "foveax_torch.io.svdwire",
         "foveax_torch.kernels.build", "foveax_torch.kernels.fused_select",
         "foveax_torch.kernels.scan2d", "foveax_torch.kernels.segreduce",
-        "foveax_torch.kernels.unwarp", "foveax_torch.pipeline.frames",
+        "foveax_torch.kernels.unwarp", "foveax_torch.kernels.sat_sample",
+        "foveax_torch.pipeline.frames",
         "foveax_torch.serve.protocol", "foveax_torch.serve.gazepred",
         "foveax_torch.serve.server", "foveax_torch.serve.client",
         "foveax_torch.io.mux", "foveax_torch.io.video",

@@ -335,6 +335,34 @@ def test_wide_shape_takes_the_sat_path():
     np.testing.assert_array_equal(got_b[0].numpy(), want)
 
 
+# F3 (ROADMAP Queue 3): from 32,768 source columns foveax's fused sampler
+# raises in interpret mode, though its eligibility admits the shape.
+F3 = dict(source_width=32768, source_height=64, reduced_width=18208,
+          reduced_height=48)
+
+
+def test_f3_port_fused_matches_foveax_sat_past_32767():
+    """At 32768x64 -> 18208x48 the port's fused sampler (inside its
+    contract) equals foveax's jitted SAT sampler, where foveax's own fused
+    sampler raises a TypeError (a negative slice size)."""
+    pipe = FoveationPipeline(FoveaxConfig(**F3), device="cpu")
+    assert pipe.sampler == "fused"
+    frame = np.random.default_rng(32).integers(0, 256, (64, 32768, 3), np.uint8)
+    grid = fx_make_grid(18208, 48, 32768, 64)
+    centers = [(0.3, 0.6), (0.0005, 0.5)]
+    sat = fx_build_sat(jnp.asarray(frame))
+    sample = jax.jit(lambda s, c: fx_sample_sat(s, grid, c))
+    for center in centers:
+        c = jnp.asarray(center, jnp.float32)
+        want = np.asarray(sample(sat, c))
+        got = pipe.foveate(torch.from_numpy(frame), pipe.center(*center))
+        np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(TypeError, match="slice_sizes must be greater than or equal to zero"):
+        fx_sample_fused(jnp.asarray(frame.transpose(2, 0, 1)), grid,
+                        jnp.asarray(centers[0], jnp.float32), out_layout="chw",
+                        interpret=True)
+
+
 def test_default_pipeline_matches_foveax(monkeypatch):
     """``default_pipeline(device="cpu")`` has foveax's configuration, wrap
     and grid, and the sampler foveax's "auto" takes on an accelerator

@@ -199,7 +199,8 @@ def test_smoke_phases_11_to_13_on_cpu(capsys):
     errs = {}
     report = chip_smoke.ladder_paths(None, errs, 256, 128, "cpu")
     assert report == {"fused": {}, "sat": {}}
-    assert errs == {"segreduce_xy": 0, "unwarp_xy": 0, "sat_build": 0}
+    assert errs == {"segreduce_xy": 0, "unwarp_xy": 0, "sat_build": 0,
+                    "sat_sample": 0}
     lines = chip_smoke.phase_fuzz(
         "cpu", ["1", "2", "--max-width", "400", "--max-height", "200"])
     assert lines[-1] == "FAILS: 0"

@@ -3,9 +3,10 @@ spans) rehearsed on the CPU at 36000x64 and 34560x64, where every kernel
 is its plain version: "auto" resolves "sat" at 36,000 columns and "fused"
 at 34,560, the SAT path's chained frames with every unwarp against its
 plain version and the exact unwarp, the SAT batch pair against the
-row-blocked plain scan and the single-gaze sampler, the reduced frame
-against the direct sampler's, and the fused sampler against its plain
-version."""
+row-blocked plain scan, the single-gaze sampler and the plain 4-tap
+sampler (three gazes here: the plain batch pairs hold the CPU's memory),
+the direct batch pair against it, the reduced frame against the direct
+sampler's, and the fused sampler against its plain version."""
 
 import pytest
 import torch
@@ -19,12 +20,16 @@ torch.set_num_threads(1)
 def test_wide_paths_on_cpu(capsys):
     errs = {}
     report = chip_smoke.wide_paths(None, errs, heights=(64, 64), device="cpu",
-                                   block_rows=16)
-    assert report == {"sat": {}, "batch": {}, "fused": {"sat": {}, "fused": {}}}
-    assert errs == {"unwarp_xy": 0, "sat_build": 0, "segreduce_xy": 0}
+                                   block_rows=16, batches=(3,))
+    ran = "ran, peak None tensor bytes, rows equal to the SAT batch's"
+    assert report == {"sat": {}, "batch": {3: {}}, "direct_batch": ran,
+                      "fused": {"sat": {}, "fused": {}}}
+    assert errs == {"unwarp_xy": 0, "sat_build": 0, "sat_sample": 0,
+                    "segreduce_xy": 0}
     out = capsys.readouterr().out
     assert "wide 36000x64 -> 20000x48: auto -> sat, 4 chained frames" in out
-    assert "batch_pair('auto') with 2 gazes launches {}" in out
+    assert "batch_pair('auto') launches by gaze count {3: {}}" in out
+    assert f"batch_pair('direct') with 3 gazes: {ran}" in out
     assert "wide 34560x64: auto -> fused (223744 bytes of shared memory" in out
 
 
