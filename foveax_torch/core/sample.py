@@ -32,6 +32,7 @@ import torch
 from foveax_torch.core.logrect import LogRectGrid, delta64, scaled_center
 from foveax_torch.kernels.sat_sample import _exact_box_div, sat_sample_batch
 from foveax_torch.kernels.scan2d import MASK32
+from foveax_torch.pipeline import profiling
 
 
 def longest_run(mask) -> tuple[int, int]:
@@ -87,11 +88,13 @@ def gaze_taps(grid: LogRectGrid, hs: int, ws: int, centers: torch.Tensor, *,
               wrap_x: bool = True):
     """Per-gaze taps of an Hs x Ws source for (N, 2) float32 centres:
     ``(pxc, pxmc, valid_x)``, each (N, Wr), then ``(pyc, pymc,
-    valid_y)``, each (N, Hr); ``wrap_x`` wraps the column axis."""
-    cx, cy = scaled_center(centers, ws, hs)  # (N,)
-    pxc, pxmc, valid_x = _axis_taps(grid.gx, cx[:, None], ws, wrap=wrap_x)
-    pyc, pymc, valid_y = _axis_taps(grid.gy, cy[:, None], hs, wrap=False)
-    return pxc, pxmc, valid_x, pyc, pymc, valid_y
+    valid_y)``, each (N, Hr); ``wrap_x`` wraps the column axis.  A
+    ``sampler.taps`` span: every sampler reaches it."""
+    with profiling.span("sampler.taps", viewers=centers.shape[0]):
+        cx, cy = scaled_center(centers, ws, hs)  # (N,)
+        pxc, pxmc, valid_x = _axis_taps(grid.gx, cx[:, None], ws, wrap=wrap_x)
+        pyc, pymc, valid_y = _axis_taps(grid.gy, cy[:, None], hs, wrap=False)
+        return pxc, pxmc, valid_x, pyc, pymc, valid_y
 
 
 def sample_rect_from_sat(
@@ -122,9 +125,10 @@ def sample_rect_from_sat(
     pxc, pxmc, valid_x, pyc, pymc, valid_y = gaze_taps(
         grid, hs, ws, center.reshape(-1, 2), wrap_x=wrap_x
     )
-    out = sat_sample_batch(
-        sat, pxmc, pxc, valid_x, pymc, pyc, valid_y, out_layout
-    )
+    with profiling.span("sampler.kernel", kernel="K7"):
+        out = sat_sample_batch(
+            sat, pxmc, pxc, valid_x, pymc, pyc, valid_y, out_layout
+        )
     return out if center.dim() == 2 else out[0]
 
 

@@ -18,13 +18,15 @@ import torch
 import torch.nn.functional as F
 
 from foveax_torch.kernels.scan2d import MASK32, as_int64, sat_scan
+from foveax_torch.pipeline import profiling
 
 
 def build_sat(frame: torch.Tensor, *, in_layout: str = "hwc") -> torch.Tensor:
     """(H, W, 3) uint8 frame (or (3, H, W) with ``in_layout="chw"``) ->
     (3, H, W) ``torch.uint32`` inclusive SAT: the plain version on a CPU
-    tensor, kernel K5 on a CUDA tensor."""
-    return sat_scan(frame, in_layout=in_layout)
+    tensor, kernel K5 on a CUDA tensor (a ``sampler.kernel`` span)."""
+    with profiling.span("sampler.kernel", kernel="K5"):
+        return sat_scan(frame, in_layout=in_layout)
 
 
 def decode_sat(sat: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ import torch
 
 from foveax_torch.core.logrect import delta_table, scaled_center
 from foveax_torch.core.logrect import lam as _lam
+from foveax_torch.pipeline import profiling
 
 PRECISIONS = ("exact", "fused", "auto", "mm", "fast")
 
@@ -196,10 +197,10 @@ def unwarp_rect(
             return out
     planar = reduced.permute(2, 0, 1) if in_layout == "hwc" else reduced
     _, hr, wr = planar.shape
-    cx, cy = scaled_center(center, out_width, out_height)
-
-    ix_lo, ix_hi, rx, _, _, _ = _axis_vectors(out_width, wr, cx, wrap=True)
-    iy_lo, iy_hi, ry, _, _, _ = _axis_vectors(out_height, hr, cy, wrap=False)
+    with profiling.span("unwarp.vectors"):
+        cx, cy = scaled_center(center, out_width, out_height)
+        ix_lo, ix_hi, rx, _, _, _ = _axis_vectors(out_width, wr, cx, wrap=True)
+        iy_lo, iy_hi, ry, _, _, _ = _axis_vectors(out_height, hr, cy, wrap=False)
 
     ry2 = ry[None, :, None]
     rx2 = rx[None, None, :]

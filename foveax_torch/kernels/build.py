@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from foveax_torch.pipeline import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # Every source under csrc/, as build() and load() name them.
@@ -106,12 +108,14 @@ def build(names: list[str]) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use (a
+    ``setup.kernel_load`` span: ``nvcc`` says whether it compiled)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            with profiling.span("setup.kernel_load", library=name) as sp:
+                sp.attrs["nvcc"] = build([name])[name] != "(cached)"
+                lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
 

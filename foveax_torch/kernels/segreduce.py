@@ -32,6 +32,7 @@ import torch
 from foveax_torch.core.logrect import LogRectGrid
 from foveax_torch.core.sample import _exact_box_div, gaze_taps
 from foveax_torch.kernels.build import I, P, Kernel, check_tensor
+from foveax_torch.pipeline import profiling
 
 XY_PASS = Kernel("segreduce", "fvx_segment_reduce_xy", [P] * 8 + [I] * 6)
 Y_PASS = Kernel("segreduce", "fvx_y_segment_reduce", [P, P, P, P, I, I, I, I])
@@ -266,19 +267,23 @@ def sample_rect_fused_batch(
 ) -> torch.Tensor:
     """N gazes (``centers``: (N, 2) float32 in [0, 1]) against one shared
     frame, one launch for the whole batch.  Returns (N, Hr, Wr, 3) for
-    "hwc", (N, 3, Hr, Wr) for "chw"."""
+    "hwc", (N, 3, Hr, Wr) for "chw".  The layout copies are
+    ``sampler.layout`` spans, the launch a ``sampler.kernel`` span."""
     if in_layout == "hwc":
         frame = frame.permute(2, 0, 1)
-    frame = frame.contiguous()
+    with profiling.span("sampler.layout", bytes=frame.numel()):
+        frame = frame.contiguous()
     pxc, pxmc, valid_x, pyc, pymc, valid_y = fused_taps(
         grid, frame, centers, wrap_x=wrap_x
     )
-    out = segment_reduce_xy_batch(
-        frame, pxmc, pxc, valid_x, pymc, pyc, valid_y
-    )
+    with profiling.span("sampler.kernel", kernel="segreduce_xy"):
+        out = segment_reduce_xy_batch(
+            frame, pxmc, pxc, valid_x, pymc, pyc, valid_y
+        )
     if out_layout == "chw":
         return out
-    return out.permute(0, 2, 3, 1).contiguous()
+    with profiling.span("sampler.layout", bytes=out.numel()):
+        return out.permute(0, 2, 3, 1).contiguous()
 
 
 def sample_rect_fused(

@@ -29,6 +29,7 @@ import torch
 from foveax_torch.core.logrect import scaled_center
 from foveax_torch.core.unwarp import _axis_tables, _axis_vectors
 from foveax_torch.kernels.build import I, P, Kernel, check_tensor
+from foveax_torch.pipeline import profiling
 
 UNWARP_XY = Kernel("unwarp", "fvx_unwarp_xy", [P] * 10 + [I] * 5)
 
@@ -105,20 +106,22 @@ def fused_vectors(hr: int, wr: int, out_width: int, out_height: int,
 
     Outside the fused contract (an axis's delta step above
     :data:`FUSED_MAX_STEP`, a host integer of the cached tables: no device
-    sync) it raises ValueError, or returns None where not ``strict``."""
-    dev = center.device
-    steps = (_axis_tables(out_width, wr, True, dev)[3],
-             _axis_tables(out_height, hr, False, dev)[3])
-    if max(steps) > FUSED_MAX_STEP:
-        if strict:
-            raise ValueError(
-                f"fused unwarp needs delta steps <= {FUSED_MAX_STEP}"
-            )
-        return None
-    cx, cy = scaled_center(center, out_width, out_height)
-    ix_lo, ix_hi, _, nx, dx, _ = _axis_vectors(out_width, wr, cx, wrap=True)
-    iy_lo, iy_hi, _, ny, dy, _ = _axis_vectors(out_height, hr, cy, wrap=False)
-    return (ix_lo, ix_hi, nx, dx), (iy_lo, iy_hi, ny, dy)
+    sync) it raises ValueError, or returns None where not ``strict``.  An
+    ``unwarp.vectors`` span."""
+    with profiling.span("unwarp.vectors"):
+        dev = center.device
+        steps = (_axis_tables(out_width, wr, True, dev)[3],
+                 _axis_tables(out_height, hr, False, dev)[3])
+        if max(steps) > FUSED_MAX_STEP:
+            if strict:
+                raise ValueError(
+                    f"fused unwarp needs delta steps <= {FUSED_MAX_STEP}"
+                )
+            return None
+        cx, cy = scaled_center(center, out_width, out_height)
+        ix_lo, ix_hi, _, nx, dx, _ = _axis_vectors(out_width, wr, cx, wrap=True)
+        iy_lo, iy_hi, _, ny, dy, _ = _axis_vectors(out_height, hr, cy, wrap=False)
+        return (ix_lo, ix_hi, nx, dx), (iy_lo, iy_hi, ny, dy)
 
 
 def unwarp_rect_fused(
@@ -135,12 +138,20 @@ def unwarp_rect_fused(
     fused kernel: bit-identical to the JAX package's ``unwarp_rect_fused``
     (xy order), within 1 LSB of the exact unwarp, fovea bit-exact.
     Outside the fused contract it raises, or returns None where not
-    ``strict`` (:func:`fused_vectors`)."""
+    ``strict`` (:func:`fused_vectors`).  The layout copies are
+    ``unwarp.layout`` spans, the launch an ``unwarp.kernel`` span."""
     planar = reduced.permute(2, 0, 1) if in_layout == "hwc" else reduced
     _, hr, wr = planar.shape
     vectors = fused_vectors(hr, wr, out_width, out_height, center,
                             strict=strict)
     if vectors is None:
         return None
-    out = unwarp_xy(planar.contiguous(), *vectors)
-    return out if out_layout == "chw" else out.permute(1, 2, 0).contiguous()
+    with profiling.span("unwarp.layout", bytes=planar.numel()):
+        planar = planar.contiguous()
+    with profiling.span("unwarp.kernel"):
+        out = unwarp_xy(planar, *vectors)
+    del planar  # freed before the output's layout copy: one frame less at the peak
+    if out_layout == "chw":
+        return out
+    with profiling.span("unwarp.layout", bytes=out.numel()):
+        return out.permute(1, 2, 0).contiguous()

@@ -53,6 +53,7 @@ from foveax_torch.kernels.segreduce import (
     sample_rect_fused_batch,
     xy_shared_bytes,
 )
+from foveax_torch.pipeline import profiling
 
 SAMPLERS = ("sat", "fused", "direct")
 
@@ -76,7 +77,8 @@ class FoveationPipeline:
     device (``cuda`` unless ``device="cpu"`` is passed).  Stateless apart
     from the grid: one instance serves any number of connections.
     ``self.sampler`` holds the resolved sampler, "fused", "sat" or
-    "direct"."""
+    "direct".  Building the grid on the device is a ``setup.pipeline``
+    span."""
 
     def __init__(
         self,
@@ -88,13 +90,17 @@ class FoveationPipeline:
     ):
         _check_sampler(sampler)
         self.config = config or FoveaxConfig()
-        self.device = resolve_device(device)
         self.wrap_x = wrap_x
         cfg = self.config
-        self.grid: LogRectGrid = make_grid(
-            cfg.reduced_width, cfg.reduced_height, cfg.source_width,
-            cfg.source_height, self.device,
-        )
+        with profiling.span(
+            "setup.pipeline", source=(cfg.source_width, cfg.source_height),
+            reduced=(cfg.reduced_width, cfg.reduced_height), sampler=sampler,
+        ):
+            self.device = resolve_device(device)
+            self.grid: LogRectGrid = make_grid(
+                cfg.reduced_width, cfg.reduced_height, cfg.source_width,
+                cfg.source_height, self.device,
+            )
         self.fused_ok = fused_eligible(self.grid)
         if sampler == "auto":
             sampler = "fused" if self.fused_ok else "sat"
