@@ -12,7 +12,6 @@ operations.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import gc
 import json
@@ -98,10 +97,6 @@ class Ctx:
     inputs: Inputs
     config: dict
     traffic: dict
-
-
-def _span_off(name):
-    return contextlib.nullcontext()
 
 
 def smi() -> str:
@@ -191,13 +186,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device,
     inputs = Inputs(seed, config, traffic, dev)
     driver = tracing.load_module("drivers", traffic["driver"])
     unit = driver.make(Ctx(pipeline, inputs, config, traffic))
-    span_names = set(driver.SPANS)
 
     for k in range(int(traffic["warm_units"])):
-        unit(-1 - k, _span_off)
+        unit(-1 - k)
     if trace:  # the profiler's first start initialises the device tracer
         prof = tracing.start()
-        unit(-1, torch.profiler.record_function)
+        unit(-1)
         tracing.stop(prof)
     found = forbidden_modules()
     if found:
@@ -211,7 +205,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device,
     sample = Reservoir(int(traffic["check_units"]), inputs.check_rng)
     latencies: list[float] = []
     starts: list[float] = []
-    prof, traced, trace_units = None, None, 0
+    prof, traced, trace_units, trace_k0 = None, None, 0, 0
     k = 0
     t0 = time.perf_counter()
     while True:
@@ -219,13 +213,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device,
         if now - t0 >= seconds:
             break
         starts.append(now)
-        span = _span_off
-        if trace and traced is None:
-            if prof is None and now - t0 >= TRACE_FROM * seconds:
-                prof, trace_t0 = tracing.start(), time.perf_counter()
-            if prof is not None:
-                span = torch.profiler.record_function
-        latency, (kind, i, gaze, out) = unit(k, span)
+        if trace and prof is None and now - t0 >= TRACE_FROM * seconds:
+            prof, trace_t0, trace_k0 = tracing.start(), time.perf_counter(), k
+        latency, (kind, i, gaze, out) = unit(k)
         latencies.append(latency)
         sample.offer((kind, i, gaze, out, inputs.pool[i]))
         if prof is not None and traced is None:
@@ -268,11 +258,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device,
         cell_shapes = {key: config[key] for key in
                        ("source_width", "source_height", "reduced_width", "reduced_height")}
         cell_shapes["viewers"] = inputs.viewers
-        summary = tracing.summarize(traced, span_names, trace_units, cell_shapes, tracing.card_peak(card))
+        summary = tracing.summarize(traced, driver.SPANS, trace_units, cell_shapes, tracing.card_peak(card))
+        summary.latencies = latencies[:trace_k0] + latencies[trace_k0 + trace_units:]
         counts = {n: sorted(set(summary.per_span(n))) for n in driver.SPANS}
         log(f"traced {summary.units} units over {summary.window_s:.6f} s: {len(summary.ops)} device "
             f"operations ({summary.unmatched} with no launch found, {summary.unnamed} unnamed records "
-            f"left out), busy {summary.busy_s:.6f} s; kernels a unit by span: {counts}")
+            f"left out), busy {summary.busy_s:.6f} s; kernels a unit by step: {counts}")
         for m in cell.per_layer:
             v = tracing.load_module("metrics", m["name"]).read(summary)
             if v is not None:

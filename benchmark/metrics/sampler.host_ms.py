@@ -1,5 +1,6 @@
-"""Host time of the ``sample`` span, mean per tick: the enqueue of the
-sampler's launches (nothing in it waits for the device)."""
+"""Host time of the tick's ``sample`` step (the port's ``serve.sample``
+span, the gaze's staging in it included), mean per tick: the enqueue of
+the sampler's launches (nothing in it waits for the device)."""
 
 
 def read(trace):

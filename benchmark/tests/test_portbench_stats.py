@@ -41,7 +41,13 @@ def _trace(ops, units=2, lo=0, hi=1_000_000):
     cell = {"source_width": 1920, "source_height": 1080, "reduced_width": 1072,
             "reduced_height": 608, "viewers": 1}
     peak = {"bytes_per_s": 3.35e12, "ops_per_s": 6.7e13}
-    return Trace(units, lo, hi, ops, spans, cell, peak, 0)
+    # the port's spans: each tick's root, the gaze's staging nested in the
+    # first sample, the taps in the second
+    port = {"stage": "serve.stage", "sample": "serve.sample", "readback": "serve.readback"}
+    annotations = [(port[n], a, b) for n, a, b in spans] + [
+        ("serve.tick", 0, 500_000), ("serve.tick", 500_000, 1_000_000),
+        ("serve.stage", 100_000, 130_000), ("sampler.taps", 600_000, 750_000)]
+    return Trace(units, lo, hi, ops, spans, cell, peak, 0, annotations=annotations)
 
 
 def test_idle_share_and_readers_from_synthetic_intervals():
@@ -67,10 +73,15 @@ def test_idle_share_and_readers_from_synthetic_intervals():
     b = trace_breakdown(t)
     assert b["device_ops"][0][0].startswith("Memcpy")
     assert b["device_ops"][0][1] == pytest.approx(160_000 / 1e9)
+    # each gap by the innermost port span the host was in
     names = dict(b["idle_gaps"])
-    assert names["host in sample"] == pytest.approx(590_000 / 1e9)
-    assert names["host in stage"] == pytest.approx(30_000 / 1e9)
-    assert names["host in readback"] == pytest.approx(10_000 / 1e9)
+    assert names == pytest.approx({"host in serve.sample": 320_000 / 1e9,
+                                   "host in sampler.taps": 210_000 / 1e9,
+                                   "host in serve.stage": 90_000 / 1e9,
+                                   "host in serve.readback": 10_000 / 1e9})
+    t.annotations = []
+    assert dict(trace_breakdown(t)["idle_gaps"]) == pytest.approx(
+        {"host between spans": 630_000 / 1e9})
 
 
 def test_readers_return_nothing_without_their_work():
@@ -82,3 +93,11 @@ def test_readers_return_nothing_without_their_work():
     t.ops = [Op("void unwarp_xy_kernel(unsigned char const*)", "kernel", 0, 10, "unwarp")]
     assert load_module("metrics", "unwarp_xy_roofline").read(t) is None
 
+
+
+def test_restore_tail_reads_the_untraced_units():
+    t = _trace([])
+    assert load_module("metrics", "restore.latency_p95_ms").read(t) is None
+    t.latencies = [0.05] * 95 + [0.2] * 5
+    assert load_module("metrics", "restore.latency_p95_ms").read(t) == pytest.approx(
+        float(np.percentile(t.latencies, 95)) * 1e3)

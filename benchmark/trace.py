@@ -2,10 +2,14 @@
 reduced in memory to what the per-layer metrics read.
 
 The profiler's raw records are read without its own post-processing (a
-1080p session stretch holds tens of thousands of launches).  Device
-operations (kernels, copies, memsets) are tied to the benchmark's span
-the host was in when it launched them, through the launch's correlation
-id.  Nothing is written to disk.
+1080p session stretch holds tens of thousands of launches).  The port's
+spans appear in them as the ``record_function`` mirrors its tracer opens
+under a profiler.  A driver names the steps of its unit by the port's
+spans that carry them (its ``SPANS``); each device operation (kernel,
+copy, memset) is tied, through its launch's correlation id, to the
+innermost step the host was in when it launched it, and each idle gap of
+the device to the innermost port span the host was in.  Nothing is
+written to disk.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import importlib.util
+import itertools
 import json
 import statistics
 from pathlib import Path
@@ -28,7 +33,7 @@ class Op:
     kind: str  # "kernel", "htod", "dtoh", "memcpy" (other), "memset"
     start: int  # ns
     end: int
-    span: str | None  # the benchmark span its launch was made in
+    span: str | None  # the innermost step its launch was made in
     launched: int | None = None  # ns: when the host launched it
 
 
@@ -37,18 +42,24 @@ class Trace:
     """What the per-layer metric readers read."""
 
     units: int  # units completed inside the stretch
-    lo: int  # ns: the first traced unit's first span starts
-    hi: int  # ns: the last traced unit's last span ends
+    lo: int  # ns: the first traced unit's first step starts
+    hi: int  # ns: the last traced unit's last step ends
     ops: list[Op]
-    spans: list[tuple[str, int, int]]
+    spans: list[tuple[str, int, int]]  # the steps, by the driver's names
     cell: dict  # shapes, viewers: what the rooflines need
     peak: dict | None  # the card's published peaks, None for an unknown card
     unmatched: int  # device operations whose launch was not found
     unnamed: int = 0  # device records with no name, left out
+    # every span of the port in the stretch, by its own name
+    annotations: list[tuple[str, int, int]] = dataclasses.field(default_factory=list)
+    # s, on the host's clock: the latency of every unit of the window
+    # outside the traced stretch
+    latencies: list[float] = dataclasses.field(default_factory=list)
 
     def per_span(self, span: str, kind: str = "kernel") -> list[int]:
-        """For each instance of ``span`` in the stretch, the number of
-        ``kind`` operations launched inside it."""
+        """For each instance of the step ``span`` in the stretch, the
+        number of ``kind`` operations launched inside it and in no step
+        nested in it."""
         inst = sorted((a, b) for n, a, b in self.spans if n == span)
         starts = [a for a, _ in inst]
         counts = [0] * len(inst)
@@ -102,19 +113,44 @@ def _device_kind(name: str) -> str:
     return "kernel"
 
 
-def summarize(records, span_names, units: int, cell: dict, peak: dict | None) -> Trace:
-    """Reduce raw profiler records to a :class:`Trace`."""
+class Nest:
+    """Properly nested (name, start, end) intervals: which is the innermost
+    to cover a time."""
+
+    def __init__(self, spans):
+        # by start, and the outer of two that start together first
+        self.spans = sorted(spans, key=lambda s: (s[1], -s[2]))
+        self.starts = [s[1] for s in self.spans]
+        # the latest end among the spans up to each: past it, none covers
+        self.reach = list(itertools.accumulate((s[2] for s in self.spans), max))
+
+    def at(self, t: float) -> str | None:
+        """The name of the innermost interval that covers ``t``, or None."""
+        i = bisect.bisect_right(self.starts, t) - 1
+        while i >= 0 and self.reach[i] >= t:
+            name, _, end = self.spans[i]
+            if end >= t:
+                return name
+            i -= 1
+        return None
+
+
+def summarize(records, steps: dict[str, str], units: int, cell: dict,
+              peak: dict | None) -> Trace:
+    """Reduce raw profiler records to a :class:`Trace`.  ``steps`` maps
+    each step of the driver's unit to the port span that carries it."""
     from torch.autograd import DeviceType
 
-    spans, launches, device = [], {}, []
+    step_of = {port: step for step, port in steps.items()}
+    annotations, launches, device = [], {}, []
     unnamed = 0
     for e in records:
         name = e.name()
         if e.is_user_annotation():
             # the profiler mirrors each span on the device's timeline:
             # only the host's copy is a span, and the mirror is no work
-            if e.device_type() != DeviceType.CUDA and name in span_names:
-                spans.append((name, e.start_ns(), e.start_ns() + e.duration_ns()))
+            if e.device_type() != DeviceType.CUDA:
+                annotations.append((name, e.start_ns(), e.start_ns() + e.duration_ns()))
         elif e.device_type() == DeviceType.CUDA:
             if not name:
                 unnamed += 1
@@ -123,17 +159,12 @@ def summarize(records, span_names, units: int, cell: dict, peak: dict | None) ->
             device.append((name, _device_kind(name), a, a + e.duration_ns(), e.correlation_id()))
         elif name.startswith("cu"):  # a CUDA runtime or driver call on the host
             launches[e.correlation_id()] = e.start_ns()
+    spans = sorted(((step_of[n], a, b) for n, a, b in annotations if n in step_of),
+                   key=lambda s: s[1])
     if not spans:
-        raise RuntimeError("the trace holds none of the benchmark's spans")
-    spans.sort(key=lambda s: s[1])
-    starts = [s[1] for s in spans]
+        raise RuntimeError(f"the trace holds none of the port's spans {sorted(step_of)}")
     lo, hi = spans[0][1], max(s[2] for s in spans)
-
-    def span_at(t: int) -> str | None:
-        i = bisect.bisect_right(starts, t) - 1
-        if i >= 0 and spans[i][1] <= t <= spans[i][2]:
-            return spans[i][0]
-        return None
+    step_at = Nest(spans).at
 
     ops, unmatched = [], 0
     for name, kind, a, b, corr in device:
@@ -141,9 +172,9 @@ def summarize(records, span_names, units: int, cell: dict, peak: dict | None) ->
             continue
         t = launches.get(corr)
         unmatched += t is None
-        ops.append(Op(name, kind, a, b, span_at(t) if t is not None else None,
-                      t))
-    return Trace(units, lo, hi, ops, spans, cell, peak, unmatched, unnamed)
+        ops.append(Op(name, kind, a, b, step_at(t) if t is not None else None, t))
+    inside = [s for s in annotations if s[2] > lo and s[1] < hi]
+    return Trace(units, lo, hi, ops, spans, cell, peak, unmatched, unnamed, inside)
 
 
 def short_name(name: str) -> str:
@@ -157,22 +188,18 @@ def short_name(name: str) -> str:
 
 def breakdown(trace: Trace) -> dict:
     """The device operations that took most time, and the idle time of the
-    device by the span the host was in, 10 of each, in seconds."""
+    device by the innermost port span the host was in, 10 of each, in
+    seconds."""
     by_op: dict[str, float] = {}
     for o in trace.ops:
         d = (min(o.end, trace.hi) - max(o.start, trace.lo)) / 1e9
         by_op[short_name(o.name)] = by_op.get(short_name(o.name), 0.0) + d
-    starts = [s[1] for s in trace.spans]
-
-    def label(t: float) -> str:
-        i = bisect.bisect_right(starts, t) - 1
-        if i >= 0 and trace.spans[i][1] <= t <= trace.spans[i][2]:
-            return f"host in {trace.spans[i][0]}"
-        return "host between spans"
+    span_at = Nest(trace.annotations).at
 
     by_gap: dict[str, float] = {}
     for a, b in stats.gaps([(o.start, o.end) for o in trace.ops], trace.lo, trace.hi):
-        k = label((a + b) / 2)
+        name = span_at((a + b) / 2)
+        k = f"host in {name}" if name is not None else "host between spans"
         by_gap[k] = by_gap.get(k, 0.0) + (b - a) / 1e9
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
     idle = sorted(by_gap.items(), key=lambda kv: -kv[1])[:10]
@@ -206,8 +233,9 @@ def copy_ms(trace: Trace, *kinds: str) -> float | None:
 
 
 def launches(trace: Trace, span: str) -> float | None:
-    """Device kernels launched inside ``span``, per unit: the median over
-    the stretch's instances of the span (the count repeats exactly)."""
+    """Device kernels launched inside the step ``span``, per unit: the
+    median over the stretch's instances of the step (the count repeats
+    exactly)."""
     counts = trace.per_span(span)
     return statistics.median(counts) if counts and max(counts) else None
 
