@@ -9,7 +9,8 @@ is a span of :mod:`foveax_torch.pipeline.profiling`: ``serve.stage``,
 ``serve.prepare``, ``serve.sample``, ``serve.readback``, and
 :meth:`ServeTick.unit` opens the tick's root span, ``serve.tick``.  The
 counters ``serve.stage_bytes`` and ``serve.readback_bytes`` add up the
-bytes copied each way.
+bytes copied each way; ``serve.readback_fresh`` counts the readbacks that
+had to grow the pinned host pool (:func:`_readback`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,28 @@ def _input_stager(device: torch.device):
             return torch.from_numpy(host).to(device)
 
     return stage
+
+
+def _readback(out) -> tuple[np.ndarray, bool]:
+    """``out`` in host memory, and whether its pinned block is new.
+
+    A CUDA tensor is copied, synchronously, into a pinned block of
+    PyTorch's caching host allocator, and the block's NumPy view is
+    returned.  The view keeps the block, which goes back to the pool when
+    the caller's last view is dropped: every caller (a tick's encodes, a
+    readback its guard abandoned) owns its frames while it holds them, and
+    a steady loop reuses cached blocks, with no page faults and no bounce
+    buffer.  ``fresh``: the pool had to allocate (``cudaHostAlloc``) for
+    this copy.  A CPU tensor and a sharded pair's ``Sharded`` batch are
+    read by their own ``.cpu()``."""
+    if not isinstance(out, torch.Tensor) or out.device.type != "cuda":
+        return out.cpu().numpy(), False
+    # the stats are empty until the pool's first block
+    allocs = torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    fresh = torch.cuda.host_memory_stats().get("num_host_alloc", 0) > allocs
+    host.copy_(out)
+    return host.numpy(), fresh
 
 
 class ServeTick:
@@ -76,7 +99,10 @@ class ServeTick:
                 padded = list(centers) + [centers[-1]] * (-len(centers) % self.pad_to)
                 out = self._sample(prepared, self.stage(np.asarray(padded, dtype=np.float32)))
         with profiling.span("serve.readback") as sp:
-            host = out.cpu().numpy()
+            host, fresh = _readback(out)
             sp.attrs["bytes"] = host.nbytes
+            sp.attrs["fresh"] = fresh
             profiling.count("serve.readback_bytes", host.nbytes)
+            if fresh:
+                profiling.count("serve.readback_fresh")
         return host if self.single else host[: len(centers)]
