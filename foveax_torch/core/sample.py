@@ -117,7 +117,8 @@ def sample_rect_from_sat(
     (:func:`~foveax_torch.kernels.sat_sample.sat_sample_batch`) computes
     from the per-axis taps: four SAT words per output value, the 4-tap
     difference mod 2^32 and the exact box division (on a CPU SAT its
-    plain version).
+    plain version), in a ``sampler.kernel`` span that carries the gaze
+    count as ``viewers``.
     """
     if taps not in ("shared", "paired"):
         raise ValueError(f"taps {taps!r}: expected 'shared' or 'paired'")
@@ -125,7 +126,7 @@ def sample_rect_from_sat(
     pxc, pxmc, valid_x, pyc, pymc, valid_y = gaze_taps(
         grid, hs, ws, center.reshape(-1, 2), wrap_x=wrap_x
     )
-    with profiling.span("sampler.kernel", kernel="K7"):
+    with profiling.span("sampler.kernel", kernel="K7", viewers=pxc.shape[0]):
         out = sat_sample_batch(
             sat, pxmc, pxc, valid_x, pymc, pyc, valid_y, out_layout
         )

@@ -24,9 +24,14 @@ from foveax_torch.pipeline import profiling
 def build_sat(frame: torch.Tensor, *, in_layout: str = "hwc") -> torch.Tensor:
     """(H, W, 3) uint8 frame (or (3, H, W) with ``in_layout="chw"``) ->
     (3, H, W) ``torch.uint32`` inclusive SAT: the plain version on a CPU
-    tensor, kernel K5 on a CUDA tensor (a ``sampler.kernel`` span)."""
-    with profiling.span("sampler.kernel", kernel="K5"):
-        return sat_scan(frame, in_layout=in_layout)
+    tensor, kernel K5 on a CUDA tensor.  A ``sampler.kernel`` span around
+    the launch, with the SAT's ``bytes`` (12 H W, written once), which the
+    counter ``sampler.sat_bytes`` adds up."""
+    with profiling.span("sampler.kernel", kernel="K5") as sp:
+        sat = sat_scan(frame, in_layout=in_layout)
+        sp.attrs["bytes"] = sat.nbytes
+        profiling.count("sampler.sat_bytes", sat.nbytes)
+        return sat
 
 
 def decode_sat(sat: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ functions and the mesh server of chip_smoke.py's phase 9; K5,
 ``segreduce_xy`` and ``unwarp_xy`` at 16K and the serving soak's CUDA
 memory (phases 11 and 13); K7, the SAT path's 4-tap sampler, on the
 path's taps at 1080p and 4K, random seam taps, wrapped SAT words and odd
-widths, with its checks and its count.
+widths, with its checks and its count; the SAT serve tick at 8K on
+frames whose channel totals wrap past 2^32, against the benchmark's plain
+reference.
 
 These tests need a CUDA device and skip without one.  On the card, run
 
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 import chip_smoke
+from benchmark.reference.foveation import BoxFilter
 from foveax_torch import FoveaxConfig, FoveationPipeline
 from foveax_torch.config import reduced_dim
 from foveax_torch.core.logrect import make_grid, scaled_center
@@ -32,6 +35,7 @@ from foveax_torch.kernels import scan2d
 from foveax_torch.kernels import segreduce as sr
 from foveax_torch.kernels import unwarp as uw
 from foveax_torch.scripts import soak
+from foveax_torch.serve.tick import ServeTick
 
 pytestmark = pytest.mark.cuda
 
@@ -788,3 +792,34 @@ def test_round_robin_serve_on_card(pipe):
         CFG, "cuda", chip_smoke.kernel_table())
     chip_smoke.expect_counts("round_robin", launches, expected)
     assert len(placed) == min(2, torch.cuda.device_count())
+
+
+@pytest.mark.parametrize("fill", ["all-255", "noise-200-255"])
+def test_sat_tick_wraps_at_8k(pipe, fill):
+    """The serve tick over ``batch_pair("sat")`` at 7680x4320 -> 4272x2400
+    with 8 gazes (the wrap seam, both poles), as the benchmark's
+    ``equirect8k_sat`` cell runs it, on frames whose every channel total
+    passes 2^32, so the uint32 SAT wraps: the reduced frames equal
+    ``BoxFilter``'s, whose int64 sums never wrap (tolerance 0), with one
+    K5 and one K7 launch."""
+    w, h, wr, hr = 7680, 4320, 4272, 2400
+    if fill == "all-255":
+        frame = np.full((h, w, 3), 255, np.uint8)
+    else:
+        frame = np.random.default_rng(2**31 + 29).integers(200, 256, (h, w, 3), dtype=np.uint8)
+    assert (frame.reshape(-1, 3).sum(0, dtype=np.int64) >= 2**32).all()
+    gazes = [(0.0, 0.5), (0.999, 0.5), (0.5, 0.0), (0.5, 0.999), (0.02, 0.02), (0.98, 0.98),
+             (0.5, 0.5), (0.31, 0.77)]
+    p = FoveationPipeline(FoveaxConfig(source_width=w, source_height=h, reduced_width=wr,
+                                       reduced_height=hr))
+    tick = ServeTick(p, p.batch_pair("sat"))
+    builds, samples = scan2d.SAT_BUILD.launches, ss.SAT_SAMPLE.launches
+    got = tick.sample(tick.prepare(frame), gazes)
+    assert (scan2d.SAT_BUILD.launches - builds, ss.SAT_SAMPLE.launches - samples) == (1, 1)
+    assert got.shape == (8, hr, wr, 3)
+    box = BoxFilter(w, h, wr, hr)
+    f = torch.from_numpy(frame).cuda()
+    off = [int((box(f, g, key=0) != torch.from_numpy(got[v]).cuda()).sum())
+           for v, g in enumerate(gazes)]
+    print(f"{fill}: reduced bytes off per gaze {off}")
+    assert off == [0] * 8
