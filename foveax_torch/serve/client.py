@@ -54,6 +54,7 @@ from foveax_torch.pipeline.frames import FoveationPipeline
 from foveax_torch.serve import protocol
 from foveax_torch.serve.protocol import Ack, FrameMeta, FrameRequest, TextMessage, VideoRequest
 from foveax_torch.serve.server import connection_closed_errors
+from foveax_torch.serve.tick import _readback
 
 log = logging.getLogger(__name__)
 
@@ -152,9 +153,15 @@ class ClientRestore:
     back to host memory, in a ``client.restore`` root span with
     ``client.upload`` and ``client.readback`` inside, which feed
     ``tally`` (a client's ``ClientStats.spans``); :attr:`last` is the last
-    restore's root span.  With ``readback`` false (a client with no frame
-    sink) it waits for the unwarp with a one-element readback and returns
-    None."""
+    restore's root span.  The readback is the serve tick's
+    (``serve/tick.py::_readback``): a frame restored on the card lands in
+    a pinned block of PyTorch's caching host allocator, which the caller
+    owns through the returned array, so a frame sink may keep it; a sink
+    that keeps every frame holds pinned memory (128 MiB a frame at 8K, 8
+    MiB at 1080p).  ``client.readback`` carries ``fresh`` and the counter
+    ``client.readback_fresh`` counts the readbacks that had to grow the
+    pool.  With ``readback`` false (a client with no frame sink) it waits
+    for the unwarp with a one-element readback and returns None."""
 
     def __init__(self, pipeline: FoveationPipeline, *, readback: bool = True,
                  tally: profiling.StageTimer | None = None):
@@ -181,8 +188,11 @@ class ClientRestore:
                     _ = int(full[0, 0, 0])
                     sp.attrs["bytes"] = 1
                     return None
-                full_np = full.cpu().numpy()
+                full_np, fresh = _readback(full)
                 sp.attrs["bytes"] = full_np.nbytes
+                sp.attrs["fresh"] = fresh
+                if fresh:
+                    profiling.count("client.readback_fresh")
                 return full_np
 
 

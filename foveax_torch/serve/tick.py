@@ -43,7 +43,8 @@ def _readback(out) -> tuple[np.ndarray, bool]:
     PyTorch's caching host allocator, and the block's NumPy view is
     returned.  The view keeps the block, which goes back to the pool when
     the caller's last view is dropped: every caller (a tick's encodes, a
-    readback its guard abandoned) owns its frames while it holds them, and
+    readback its guard abandoned, a client's frame sink through
+    ``ClientRestore``) owns its frames while it holds them, and
     a steady loop reuses cached blocks, with no page faults and no bounce
     buffer.  ``fresh``: the pool had to allocate (``cudaHostAlloc``) for
     this copy.  A CPU tensor and a sharded pair's ``Sharded`` batch are

@@ -1,9 +1,12 @@
-"""The serve tick's readback (``serve/tick.py::ServeTick.sample``): on the
-CPU the frames are read as they are, the same bytes as ``.cpu()``; on the
-card they land in pinned blocks that each caller owns, so frames a caller
-holds are never overwritten by later ticks, and a steady loop takes its
-blocks from the pool.  The ``serve.readback`` span's ``fresh`` attribute
-and ``tick.readback_fresh_share``'s reader over hand-made spans.
+"""The serve tick's readback (``serve/tick.py::ServeTick.sample``) and the
+client restore's, which is the same function
+(``serve/client.py::ClientRestore``): on the CPU the frames are read as
+they are, the same bytes as ``.cpu()``; on the card they land in pinned
+blocks that each caller owns, so frames a caller holds are never
+overwritten by later ticks or restores, and a steady loop takes its
+blocks from the pool.  The ``serve.readback`` and ``client.readback``
+spans' ``fresh`` attribute and ``tick.readback_fresh_share``'s reader over
+hand-made spans.
 
 The card tests skip without a CUDA device.  On the card, run
 
@@ -19,6 +22,7 @@ from benchmark.trace import Trace, load_module
 from foveax_torch.config import FoveaxConfig
 from foveax_torch.pipeline import profiling
 from foveax_torch.pipeline.frames import FoveationPipeline
+from foveax_torch.serve.client import ClientRestore
 from foveax_torch.serve.tick import ServeTick
 
 SMALL = dict(source_width=96, source_height=64, reduced_width=48, reduced_height=32)
@@ -87,6 +91,41 @@ def test_held_outputs_stay_their_own_gaze(small, clean):
     f = torch.from_numpy(frame)
     for g, out in zip(GAZES[:5], held):
         np.testing.assert_array_equal(out[0], box(f, g, key=0).numpy())
+
+
+def _plain_restore(p, reduced, center):
+    """``ClientRestore``'s frame read back with a plain ``.cpu()``."""
+    red = torch.from_numpy(np.ascontiguousarray(reduced)).to(p.device)
+    return p.unwarp_auto(red, torch.tensor(center, dtype=torch.float32).to(p.device)).cpu().numpy()
+
+
+@pytest.mark.parametrize("given", ["host", "tensor"])
+def test_cpu_client_restore_is_plain_cpu(small, given, clean):
+    p, _ = small
+    reduced = np.random.default_rng(3).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    arg = reduced if given == "host" else torch.from_numpy(reduced)
+    got = ClientRestore(p)(arg, GAZES[1])
+    want = _plain_restore(p, reduced, GAZES[1])
+    assert got.shape == (64, 96, 3) and got.dtype == np.uint8
+    assert got.tobytes() == want.tobytes()
+
+
+def test_cpu_client_readback_span_is_not_fresh(small, clean):
+    p, _ = small
+    reduced = np.random.default_rng(4).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    got = ClientRestore(p)(reduced, GAZES[2])
+    (rb,) = profiling.spans(names=("client.readback",))
+    assert rb.attrs == {"bytes": got.nbytes, "fresh": False}
+    assert "client.readback_fresh" not in profiling.counts()
+
+
+def test_client_restore_without_readback_sets_no_fresh(small, clean):
+    p, _ = small
+    reduced = np.random.default_rng(4).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    assert ClientRestore(p, readback=False)(reduced, GAZES[2]) is None
+    (rb,) = profiling.spans(names=("client.readback",))
+    assert rb.attrs == {"bytes": 1}
+    assert "client.readback_fresh" not in profiling.counts()
 
 
 def _rec(a, b, **attrs):
@@ -164,3 +203,46 @@ def test_card_steady_ticks_allocate_no_block(card, clean):
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
     assert profiling.counts().get("serve.readback_fresh", 0) == fresh
     assert not any(r.attrs["fresh"] for r in profiling.spans(names=("serve.readback",))[2:])
+
+
+# Twenty distinct gazes for the held restores, over the whole sphere.
+GAZES20 = [tuple(map(float, g)) for g in np.random.default_rng(20).random((20, 2))]
+
+
+@pytest.fixture(scope="module")
+def card_reduced(card):
+    p, _ = card
+    return np.random.default_rng(6).integers(0, 256, p.reduced_shape, dtype=np.uint8)
+
+
+@pytest.mark.cuda
+def test_card_client_readback_is_pinned(card, card_reduced, clean):
+    p, _ = card
+    got = ClientRestore(p)(card_reduced, GAZES[1])
+    assert torch.from_numpy(got).is_pinned()
+    (rb,) = profiling.spans(names=("client.readback",))
+    assert rb.attrs["bytes"] == got.nbytes and isinstance(rb.attrs["fresh"], bool)
+
+
+@pytest.mark.cuda
+def test_card_held_restores_stay_equal(card, card_reduced, clean):
+    p, _ = card
+    restore = ClientRestore(p)
+    held = [restore(card_reduced, g) for g in GAZES20]
+    for g, out in zip(GAZES20, held):
+        assert out.tobytes() == _plain_restore(p, card_reduced, g).tobytes()
+
+
+@pytest.mark.cuda
+def test_card_steady_restores_allocate_no_block(card, card_reduced, clean):
+    p, _ = card
+    restore = ClientRestore(p)
+    for g in GAZES[:2]:
+        restore(card_reduced, g)
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    fresh = profiling.counts().get("client.readback_fresh", 0)
+    for k in range(10):
+        restore(card_reduced, GAZES[k % len(GAZES)])
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
+    assert profiling.counts().get("client.readback_fresh", 0) == fresh
+    assert not any(r.attrs["fresh"] for r in profiling.spans(names=("client.readback",))[2:])
