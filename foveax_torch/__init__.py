@@ -15,7 +15,7 @@ version.
 from foveax_torch.config import DEFAULT_CONFIG, FoveaxConfig, reduced_dim
 from foveax_torch.core.logrect import LogRectGrid, make_grid
 from foveax_torch.pipeline.frames import FoveationPipeline
-from foveax_torch.serve import FoveaxClient, FoveaxServer
+from foveax_torch.serve import FoveaxClient
 
 __version__ = "0.1.0"
 
@@ -30,3 +30,13 @@ __all__ = [
     "reduced_dim",
     "__version__",
 ]
+
+
+def __getattr__(name: str):
+    # The server loads on first use (foveax_torch.serve), so that a client
+    # alone never imports it.
+    if name == "FoveaxServer":
+        from foveax_torch.serve import FoveaxServer
+
+        return FoveaxServer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,8 +1,8 @@
 """Streaming server and client on the port's pipeline (the port's fork of
-the JAX package's ``serve``)."""
+the JAX package's ``serve``).  The server module loads when
+``FoveaxServer`` is first asked for, so a client alone never imports it."""
 
 from foveax_torch.serve.protocol import Ack, FrameMeta, FrameRequest, TextMessage, VideoRequest
-from foveax_torch.serve.server import FoveaxServer
 from foveax_torch.serve.client import FoveaxClient, ClientStats
 
 __all__ = [
@@ -15,3 +15,11 @@ __all__ = [
     "FoveaxClient",
     "ClientStats",
 ]
+
+
+def __getattr__(name: str):
+    if name == "FoveaxServer":
+        from foveax_torch.serve.server import FoveaxServer
+
+        return FoveaxServer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

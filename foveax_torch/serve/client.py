@@ -52,9 +52,10 @@ from foveax_torch.io.wirecodec import make_wire_decoder
 from foveax_torch.pipeline import profiling
 from foveax_torch.pipeline.frames import FoveationPipeline
 from foveax_torch.serve import protocol
-from foveax_torch.serve.protocol import Ack, FrameMeta, FrameRequest, TextMessage, VideoRequest
-from foveax_torch.serve.server import connection_closed_errors
-from foveax_torch.serve.tick import _readback
+from foveax_torch.serve.protocol import (
+    Ack, FrameMeta, FrameRequest, TextMessage, VideoRequest, connection_closed_errors,
+)
+from foveax_torch.serve.tick import readback, upload
 
 log = logging.getLogger(__name__)
 
@@ -153,12 +154,12 @@ class ClientRestore:
     back to host memory, in a ``client.restore`` root span with
     ``client.upload`` and ``client.readback`` inside, which feed
     ``tally`` (a client's ``ClientStats.spans``); :attr:`last` is the last
-    restore's root span.  The readback is the serve tick's
-    (``serve/tick.py::_readback``): a frame restored on the card lands in
-    a pinned block of PyTorch's caching host allocator, which the caller
-    owns through the returned array, so a frame sink may keep it; a sink
-    that keeps every frame holds pinned memory (128 MiB a frame at 8K, 8
-    MiB at 1080p).  ``client.readback`` carries ``fresh`` and the counter
+    restore's root span.  Both copies are the serve tick's
+    (``serve/tick.py::upload`` and ``readback``): a frame restored on the
+    card lands in a pinned block of PyTorch's caching host allocator, which
+    the caller owns through the returned array, so a frame sink may keep
+    it; a sink that keeps every frame holds pinned memory (128 MiB a frame
+    at 8K, 8 MiB at 1080p).  ``client.readback`` carries ``fresh`` and the counter
     ``client.readback_fresh`` counts the readbacks that had to grow the
     pool.  With ``readback`` false (a client with no frame sink) it waits
     for the unwarp with a one-element readback and returns None."""
@@ -174,26 +175,11 @@ class ClientRestore:
         """``reduced``: the (Hr, Wr, 3) uint8 frame, a host array or a
         tensor (on the device already, from an SVD decoder); ``center``:
         (cx, cy)."""
-        dev = self.pipeline.device
         with profiling.root("client.restore", tally=self.tally) as self.last:
-            with profiling.span("client.upload") as sp:
-                if not isinstance(reduced, torch.Tensor):
-                    reduced = torch.from_numpy(np.ascontiguousarray(reduced))
-                sp.attrs["bytes"] = reduced.numel()
-                reduced = reduced.to(dev)
-                c = torch.tensor(center, dtype=torch.float32).to(dev)
+            reduced, c = upload(reduced, self.pipeline.device,
+                                profiling.span("client.upload"), gaze=center)
             full = self.pipeline.unwarp_auto(reduced, c)
-            with profiling.span("client.readback") as sp:
-                if not self.readback:
-                    _ = int(full[0, 0, 0])
-                    sp.attrs["bytes"] = 1
-                    return None
-                full_np, fresh = _readback(full)
-                sp.attrs["bytes"] = full_np.nbytes
-                sp.attrs["fresh"] = fresh
-                if fresh:
-                    profiling.count("client.readback_fresh")
-                return full_np
+            return readback(full, profiling.span("client.readback"), whole=self.readback)
 
 
 class SvdDecoder:

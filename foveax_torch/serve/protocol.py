@@ -71,6 +71,17 @@ _BY_TYPE = {
 }
 
 
+def connection_closed_errors() -> tuple[type[BaseException], ...]:
+    """What a closed connection raises: ``ConnectionError`` (an in-memory
+    or socket transport), and the connection-closed exception of
+    ``websockets`` where it is installed."""
+    try:
+        import websockets
+    except ImportError:
+        return (ConnectionError,)
+    return (ConnectionError, websockets.ConnectionClosed)
+
+
 def dumps(msg: Any) -> str:
     return json.dumps(dataclasses.asdict(msg))
 

@@ -1,16 +1,22 @@
-"""A serve tick's device work, as both serve loops run it.
+"""A serve tick's device work, as both serve loops run it, and the
+host <-> device copies of the tick and of a client's restore.
 
 :class:`ServeTick` stages a decoded frame and prepares it once per source
 frame (``prepare``), then samples the tick's gazes and reads the reduced
-frames back to host memory (``sample``).  ``BroadcastChannel._loop`` and
-``FoveaxServer._send_frame_loop`` (``serve/server.py``) call it from
-their executor threads; a benchmark can drive it the same way.  Each step
-is a span of :mod:`foveax_torch.pipeline.profiling`: ``serve.stage``,
+frames back to host memory (``sample``).  ``serve/server.py::Feed`` calls
+it from the executor threads for both serve loops; a benchmark can drive
+it the same way.  Each step is a span of
+:mod:`foveax_torch.pipeline.profiling`: ``serve.stage``,
 ``serve.prepare``, ``serve.sample``, ``serve.readback``, and
-:meth:`ServeTick.unit` opens the tick's root span, ``serve.tick``.  The
-counters ``serve.stage_bytes`` and ``serve.readback_bytes`` add up the
-bytes copied each way; ``serve.readback_fresh`` counts the readbacks that
-had to grow the pinned host pool (:func:`_readback`).
+:meth:`ServeTick.unit` opens the tick's root span, ``serve.tick``.
+
+:func:`upload` and :func:`readback` are every copy of the tick and of
+``serve/client.py::ClientRestore``: each opens the span its caller names
+and gives it ``bytes`` (and ``fresh`` on a readback).  The counters
+``serve.stage_bytes`` and ``serve.readback_bytes`` add up the bytes the
+tick copies each way; ``serve.readback_fresh`` and
+``client.readback_fresh`` count the readbacks that had to grow the pinned
+host pool.
 """
 
 from __future__ import annotations
@@ -21,34 +27,73 @@ import torch
 from foveax_torch.pipeline import profiling
 
 
-def _input_stager(device: torch.device):
-    """Staging fn for hot-loop device inputs: a synchronous host -> device
-    copy, so the host array (a reader's frame, the gaze list) may be reused
-    as soon as the call returns."""
+def upload(x, device, span: profiling.span, *, counted: bool = False, gaze=None):
+    """``x`` (a host array, or a tensor) on ``device``, by a synchronous
+    copy inside ``span`` (a span not yet entered), which carries its
+    ``bytes``, so a host array (a reader's frame, the gaze list) may be
+    reused as soon as the call returns; a tensor on ``device`` already is
+    taken as it is.  ``counted`` adds the bytes to the counter
+    ``<span name>_bytes``.  With ``gaze``, a (cx, cy) pair, that follows
+    as a (2,) float32 tensor in the same span, outside ``bytes``, and the
+    pair ``(x, gaze)`` is returned."""
+    with span as sp:
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        nbytes = x.numel() * x.element_size()
+        sp.attrs["bytes"] = nbytes
+        if counted:
+            profiling.count(f"{sp.name}_bytes", nbytes)
+        x = x.to(device)
+        if gaze is None:
+            return x
+        return x, torch.tensor(gaze, dtype=torch.float32).to(device)
+
+
+def stager(device: torch.device):
+    """The tick's staging of its device inputs: :func:`upload` in a
+    ``serve.stage`` span, counted."""
 
     def stage(x) -> torch.Tensor:
-        with profiling.span("serve.stage") as sp:
-            host = np.ascontiguousarray(x)
-            sp.attrs["bytes"] = host.nbytes
-            profiling.count("serve.stage_bytes", host.nbytes)
-            return torch.from_numpy(host).to(device)
+        return upload(x, device, profiling.span("serve.stage"), counted=True)
 
     return stage
 
 
-def _readback(out) -> tuple[np.ndarray, bool]:
-    """``out`` in host memory, and whether its pinned block is new.
+def readback(out, span: profiling.span, *, counted: bool = False, whole: bool = True):
+    """``out`` in host memory, read inside ``span`` (a span not yet
+    entered), which carries its ``bytes`` and ``fresh``: whether the pinned
+    host pool had to allocate (``cudaHostAlloc``) for this copy, counted as
+    ``<span name>_fresh``.  ``counted`` adds the bytes to the counter
+    ``<span name>_bytes``.  With
+    ``whole`` false it only waits for ``out`` by reading one element back
+    (``bytes`` 1, no ``fresh``) and returns None.
 
     A CUDA tensor is copied, synchronously, into a pinned block of
     PyTorch's caching host allocator, and the block's NumPy view is
     returned.  The view keeps the block, which goes back to the pool when
     the caller's last view is dropped: every caller (a tick's encodes, a
-    readback its guard abandoned, a client's frame sink through
-    ``ClientRestore``) owns its frames while it holds them, and
-    a steady loop reuses cached blocks, with no page faults and no bounce
-    buffer.  ``fresh``: the pool had to allocate (``cudaHostAlloc``) for
-    this copy.  A CPU tensor and a sharded pair's ``Sharded`` batch are
-    read by their own ``.cpu()``."""
+    readback its guard abandoned, a client's frame sink) owns its frames
+    while it holds them, and a steady loop reuses cached blocks, with no
+    page faults and no bounce buffer.  A CPU tensor and a sharded pair's
+    ``Sharded`` batch are read by their own ``.cpu()``."""
+    with span as sp:
+        if not whole:
+            _ = int(out[(0,) * out.dim()])
+            sp.attrs["bytes"] = 1
+            return None
+        host, fresh = _to_host(out)
+        sp.attrs["bytes"] = host.nbytes
+        sp.attrs["fresh"] = fresh
+        if counted:
+            profiling.count(f"{sp.name}_bytes", host.nbytes)
+        if fresh:
+            profiling.count(f"{sp.name}_fresh")
+        return host
+
+
+def _to_host(out) -> tuple[np.ndarray, bool]:
+    """:func:`readback`'s copy: the host array, and whether its pinned
+    block is new."""
     if not isinstance(out, torch.Tensor) or out.device.type != "cuda":
         return out.cpu().numpy(), False
     # the stats are empty until the pool's first block
@@ -70,7 +115,7 @@ class ServeTick:
 
     def __init__(self, pipeline, pair, *, single: bool = False, pad_to: int = 1):
         self.pipeline = pipeline
-        self.stage = _input_stager(pipeline.device)
+        self.stage = stager(pipeline.device)
         self._prepare, self._sample = pair
         self.single = single
         self.pad_to = pad_to
@@ -99,11 +144,5 @@ class ServeTick:
             else:
                 padded = list(centers) + [centers[-1]] * (-len(centers) % self.pad_to)
                 out = self._sample(prepared, self.stage(np.asarray(padded, dtype=np.float32)))
-        with profiling.span("serve.readback") as sp:
-            host, fresh = _readback(out)
-            sp.attrs["bytes"] = host.nbytes
-            sp.attrs["fresh"] = fresh
-            profiling.count("serve.readback_bytes", host.nbytes)
-            if fresh:
-                profiling.count("serve.readback_fresh")
+        host = readback(out, profiling.span("serve.readback"), counted=True)
         return host if self.single else host[: len(centers)]

@@ -141,6 +141,20 @@ def test_port_imports_without_websockets_or_cv2():
     assert report["jpeg"] == "OpenCV not available for JPEG encode"
 
 
+def test_client_does_not_load_the_server():
+    """The client's module imports nothing of the server's: what both
+    sides share is in ``serve/protocol.py``.  The server still loads by
+    its public names."""
+    probe = ("import sys, foveax_torch.serve.client; "
+             "print('foveax_torch.serve.server' in sys.modules); "
+             "from foveax_torch import FoveaxServer; print(FoveaxServer.__module__)")
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    assert out.stdout.split() == ["False", "foveax_torch.serve.server"]
+
+
 def test_smoke_source_imports():
     """chip_smoke.py names only the standard library (asyncio for the
     serve phase's in-memory connection; contextlib, io, os and tempfile

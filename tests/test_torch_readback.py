@@ -1,12 +1,12 @@
 """The serve tick's readback (``serve/tick.py::ServeTick.sample``) and the
-client restore's, which is the same function
-(``serve/client.py::ClientRestore``): on the CPU the frames are read as
-they are, the same bytes as ``.cpu()``; on the card they land in pinned
-blocks that each caller owns, so frames a caller holds are never
-overwritten by later ticks or restores, and a steady loop takes its
-blocks from the pool.  The ``serve.readback`` and ``client.readback``
-spans' ``fresh`` attribute and ``tick.readback_fresh_share``'s reader over
-hand-made spans.
+client restore's (``serve/client.py::ClientRestore``), both
+``serve/tick.py::readback``: on the CPU the frames are read as they are,
+the same bytes as ``.cpu()``; on the card they land in pinned blocks that
+each caller owns, so frames a caller holds are never overwritten by later
+ticks or restores, and a steady loop takes its blocks from the pool.  The
+``serve.readback`` and ``client.readback`` spans' ``fresh`` attribute,
+the copies' spans and counters (``upload``, ``readback``) and
+``tick.readback_fresh_share``'s reader over hand-made spans.
 
 The card tests skip without a CUDA device.  On the card, run
 
@@ -23,7 +23,7 @@ from foveax_torch.config import FoveaxConfig
 from foveax_torch.pipeline import profiling
 from foveax_torch.pipeline.frames import FoveationPipeline
 from foveax_torch.serve.client import ClientRestore
-from foveax_torch.serve.tick import ServeTick
+from foveax_torch.serve.tick import ServeTick, readback, upload
 
 SMALL = dict(source_width=96, source_height=64, reduced_width=48, reduced_height=32)
 # Distinct gazes, across the wrap seam and the poles.
@@ -69,15 +69,79 @@ def test_cpu_readback_is_plain_cpu(small, case, clean):
     assert got.tobytes() == want.tobytes()
 
 
-def test_cpu_readback_span_is_not_fresh(small, clean):
+class _Caller:
+    """A caller of ``serve/tick.py::readback``: a serve tick's sample of
+    the prepared ``frame`` at a batch of gazes (``tick``), or a client's
+    restore of ``reduced`` at the first of them (``restore``).  ``span``
+    and ``fresh`` name the span it reads back in and the counter of its
+    fresh blocks; ``plain`` is its output read back with a plain
+    ``.cpu()``."""
+
+    def __init__(self, caller, p, frame, reduced):
+        if caller == "tick":
+            self.span, self.fresh = "serve.readback", "serve.readback_fresh"
+            tick = ServeTick(p, p.batch_pair("auto"))
+            prepared = tick.prepare(frame)
+            self.run = lambda gazes: tick.sample(prepared, gazes)
+            self.plain = lambda gazes: _plain(tick, prepared, gazes)
+        else:
+            self.span, self.fresh = "client.readback", "client.readback_fresh"
+            restore = ClientRestore(p)
+            self.run = lambda gazes: restore(reduced, gazes[0])
+            self.plain = lambda gazes: _plain_restore(p, reduced, gazes[0])
+
+
+CALLERS = ["tick", "restore"]
+
+
+@pytest.mark.parametrize("caller", CALLERS)
+def test_cpu_readback_span_is_not_fresh(small, caller, clean):
     p, frame = small
-    tick = ServeTick(p, p.batch_pair("auto"))
-    before = profiling.counts().get("serve.readback_fresh", 0)
+    reduced = np.random.default_rng(4).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    c = _Caller(caller, p, frame, reduced)
+    before = profiling.counts().get(c.fresh, 0)
     with ServeTick.unit(viewers=2):
-        got = tick.sample(tick.prepare(frame), GAZES[:2])
-    (rb,) = [r for r in profiling.spans() if r.name == "serve.readback"]
+        got = c.run(GAZES[:2])
+    (rb,) = profiling.spans(names=(c.span,))
     assert rb.attrs == {"bytes": got.nbytes, "fresh": False}
-    assert profiling.counts().get("serve.readback_fresh", 0) == before
+    assert profiling.counts().get(c.fresh, 0) == before
+
+
+@pytest.mark.parametrize("span, counted", [
+    ("serve.stage", True), ("client.upload", False), ("serve.readback", True),
+    ("client.readback", False),
+])
+def test_copies_name_their_span_and_counters(span, counted, clean):
+    """``upload`` and ``readback`` give the span their caller opens its
+    ``bytes`` (and a readback ``fresh``), add the bytes to
+    ``<span>_bytes`` only where ``counted``, and return the same bytes."""
+    x = np.random.default_rng(9).integers(0, 256, (5, 7, 3), dtype=np.uint8)
+    before = profiling.counts()
+    if span.endswith("readback"):
+        got = readback(torch.from_numpy(x), profiling.span(span), counted=counted)
+        want_attrs = {"bytes": x.nbytes, "fresh": False}
+    else:
+        got = upload(x, torch.device("cpu"), profiling.span(span), counted=counted).numpy()
+        want_attrs = {"bytes": x.nbytes}
+    assert got.tobytes() == x.tobytes()
+    (rec,) = profiling.spans(names=(span,))
+    assert rec.attrs == want_attrs
+    grown = {k: v - before.get(k, 0) for k, v in profiling.counts().items()
+             if v != before.get(k, 0)}
+    assert grown == ({f"{span}_bytes": x.nbytes} if counted else {})
+
+
+def test_upload_with_gaze_and_readback_wait(clean):
+    """A restore's upload carries its gaze in the same span, outside
+    ``bytes``; a readback that only waits reads one element."""
+    x = np.arange(24, dtype=np.uint8).reshape(2, 4, 3)
+    up, gaze = upload(x, torch.device("cpu"), profiling.span("client.upload"),
+                      gaze=(0.25, 0.75))
+    assert up.numpy().tobytes() == x.tobytes()
+    assert gaze.dtype == torch.float32 and gaze.tolist() == [0.25, 0.75]
+    assert readback(up, profiling.span("client.readback"), whole=False) is None
+    assert [(r.name, r.attrs) for r in profiling.spans()] == [
+        ("client.upload", {"bytes": 24}), ("client.readback", {"bytes": 1})]
 
 
 def test_held_outputs_stay_their_own_gaze(small, clean):
@@ -108,15 +172,6 @@ def test_cpu_client_restore_is_plain_cpu(small, given, clean):
     want = _plain_restore(p, reduced, GAZES[1])
     assert got.shape == (64, 96, 3) and got.dtype == np.uint8
     assert got.tobytes() == want.tobytes()
-
-
-def test_cpu_client_readback_span_is_not_fresh(small, clean):
-    p, _ = small
-    reduced = np.random.default_rng(4).integers(0, 256, (32, 48, 3), dtype=np.uint8)
-    got = ClientRestore(p)(reduced, GAZES[2])
-    (rb,) = profiling.spans(names=("client.readback",))
-    assert rb.attrs == {"bytes": got.nbytes, "fresh": False}
-    assert "client.readback_fresh" not in profiling.counts()
 
 
 def test_client_restore_without_readback_sets_no_fresh(small, clean):
@@ -169,80 +224,45 @@ def card():
     return p, frame
 
 
-@pytest.mark.cuda
-def test_card_readback_is_pinned(card, clean):
-    p, frame = card
-    tick = ServeTick(p, p.batch_pair("auto"))
-    got = tick.sample(tick.prepare(frame), GAZES[:2])
-    assert torch.from_numpy(got).is_pinned()
-    (rb,) = [r for r in profiling.spans() if r.name == "serve.readback"]
-    assert rb.attrs["bytes"] == got.nbytes and isinstance(rb.attrs["fresh"], bool)
-
-
-@pytest.mark.cuda
-def test_card_held_outputs_stay_equal(card, clean):
-    p, frame = card
-    tick = ServeTick(p, p.batch_pair("auto"))
-    prepared = tick.prepare(frame)
-    held = [tick.sample(prepared, [g]) for g in GAZES]
-    for g, out in zip(GAZES, held):
-        assert out.tobytes() == _plain(tick, prepared, [g]).tobytes()
-
-
-@pytest.mark.cuda
-def test_card_steady_ticks_allocate_no_block(card, clean):
-    p, frame = card
-    tick = ServeTick(p, p.batch_pair("auto"))
-    prepared = tick.prepare(frame)
-    for _ in range(2):
-        tick.sample(prepared, GAZES[:4])
-    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
-    fresh = profiling.counts().get("serve.readback_fresh", 0)
-    for k in range(10):
-        tick.sample(prepared, GAZES[k % 3: k % 3 + 4])
-    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
-    assert profiling.counts().get("serve.readback_fresh", 0) == fresh
-    assert not any(r.attrs["fresh"] for r in profiling.spans(names=("serve.readback",))[2:])
-
-
-# Twenty distinct gazes for the held restores, over the whole sphere.
-GAZES20 = [tuple(map(float, g)) for g in np.random.default_rng(20).random((20, 2))]
-
-
 @pytest.fixture(scope="module")
 def card_reduced(card):
     p, _ = card
     return np.random.default_rng(6).integers(0, 256, p.reduced_shape, dtype=np.uint8)
 
 
+# Twenty distinct gazes for the held outputs, over the whole sphere.
+GAZES20 = [tuple(map(float, g)) for g in np.random.default_rng(20).random((20, 2))]
+
+
 @pytest.mark.cuda
-def test_card_client_readback_is_pinned(card, card_reduced, clean):
-    p, _ = card
-    got = ClientRestore(p)(card_reduced, GAZES[1])
+@pytest.mark.parametrize("caller", CALLERS)
+def test_card_readback_is_pinned(card, card_reduced, caller, clean):
+    c = _Caller(caller, *card, card_reduced)
+    got = c.run(GAZES[1:3])
     assert torch.from_numpy(got).is_pinned()
-    (rb,) = profiling.spans(names=("client.readback",))
+    (rb,) = profiling.spans(names=(c.span,))
     assert rb.attrs["bytes"] == got.nbytes and isinstance(rb.attrs["fresh"], bool)
 
 
 @pytest.mark.cuda
-def test_card_held_restores_stay_equal(card, card_reduced, clean):
-    p, _ = card
-    restore = ClientRestore(p)
-    held = [restore(card_reduced, g) for g in GAZES20]
+@pytest.mark.parametrize("caller", CALLERS)
+def test_card_held_outputs_stay_equal(card, card_reduced, caller, clean):
+    c = _Caller(caller, *card, card_reduced)
+    held = [c.run([g]) for g in GAZES20]
     for g, out in zip(GAZES20, held):
-        assert out.tobytes() == _plain_restore(p, card_reduced, g).tobytes()
+        assert out.tobytes() == c.plain([g]).tobytes()
 
 
 @pytest.mark.cuda
-def test_card_steady_restores_allocate_no_block(card, card_reduced, clean):
-    p, _ = card
-    restore = ClientRestore(p)
-    for g in GAZES[:2]:
-        restore(card_reduced, g)
+@pytest.mark.parametrize("caller", CALLERS)
+def test_card_steady_readbacks_allocate_no_block(card, card_reduced, caller, clean):
+    c = _Caller(caller, *card, card_reduced)
+    for k in range(2):
+        c.run(GAZES[k: k + 4])
     allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
-    fresh = profiling.counts().get("client.readback_fresh", 0)
+    fresh = profiling.counts().get(c.fresh, 0)
     for k in range(10):
-        restore(card_reduced, GAZES[k % len(GAZES)])
+        c.run(GAZES[k % 3: k % 3 + 4])
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
-    assert profiling.counts().get("client.readback_fresh", 0) == fresh
-    assert not any(r.attrs["fresh"] for r in profiling.spans(names=("client.readback",))[2:])
+    assert profiling.counts().get(c.fresh, 0) == fresh
+    assert not any(r.attrs["fresh"] for r in profiling.spans(names=(c.span,))[2:])

@@ -669,6 +669,99 @@ def test_renegotiation_failure_closes_session(monkeypatch):
     assert any("renegotiation failed" in t for t in texts), texts
 
 
+def _renegotiating_clients(port, server, n, max_frames):
+    """``n`` JPEG clients of one video; after the first client's third
+    frame the server's preset generation moves on once, which makes every
+    member's encoder stale: the next tick renegotiates it.  Each client
+    keeps its texts and counts the decoders it builds."""
+    bumped = []
+
+    def sink(frame, meta, client):
+        client.got += 1
+        if client.got == 3 and not bumped:
+            bumped.append(True)
+            server._preset_gen += 1
+
+    class Counting(FoveaxClient):
+        def _make_decoder(self, *args):
+            self.decoders += 1
+            return super()._make_decoder(*args)
+
+    clients = []
+    for k in range(n):
+        texts = []
+        c = Counting(f"ws://127.0.0.1:{port}", config=CFG, device="cpu",
+                     video="synthetic://96x64@30/60", max_frames=max_frames,
+                     gaze_source=lambda i, k=k: (0.3 + 0.4 * k, 0.5),
+                     frame_sink=lambda f, m, k=k: sink(f, m, clients[k]),
+                     on_text=texts.append)
+        c.got, c.decoders, c.texts = 0, 0, texts
+        clients.append(c)
+    return clients
+
+
+def _stream_infos(client) -> int:
+    return sum('"streamInfo"' in t for t in client.texts)
+
+
+@pytest.mark.parametrize("broadcast", [False, True], ids=["session", "broadcast"])
+def test_renegotiation_resends_the_header_on_the_jpeg_wire(broadcast):
+    """A mid-stream renegotiation (a preset-pressure change) on the JPEG
+    wire: every client gets a second streamInfo and header, rebuilds its
+    decoder on the new init segment and keeps decoding to its
+    max_frames."""
+    port = _free_port()
+    server = _server(wire_codec="jpeg", broadcast=broadcast)
+    clients = _renegotiating_clients(port, server, 2 if broadcast else 1, 10)
+
+    async def body():
+        return await asyncio.gather(*(c.run() for c in clients))
+
+    stats = _serve(server, port, body)
+    assert [s.frames for s in stats] == [10] * len(clients)
+    assert [_stream_infos(c) for c in clients] == [2] * len(clients)
+    assert [c.decoders for c in clients] == [2] * len(clients)
+
+
+@pytest.mark.parametrize("broadcast", [False, True], ids=["session", "broadcast"])
+def test_renegotiation_failure_ends_only_that_stream(monkeypatch, broadcast):
+    """The first encoder that cannot reopen mid-stream (JPEG wire): its
+    client is told and its connection closed.  A session's stream ends; a
+    channel evicts that member from its loop and serves the other to its
+    max_frames."""
+    port = _free_port()
+    server = _server(wire_codec="jpeg", broadcast=broadcast)
+    failed, evicted = [], []
+    renegotiate, leave = Session.renegotiate_wire, BroadcastChannel.leave
+
+    def flaky(self, cfg):
+        if not failed:
+            failed.append(self)
+            raise RuntimeError("fx_enc_open failed")
+        return renegotiate(self, cfg)
+
+    def spy(self, session):
+        if asyncio.current_task() is self.task:  # from the channel's loop
+            evicted.append(session)
+        return leave(self, session)
+
+    monkeypatch.setattr(Session, "renegotiate_wire", flaky)
+    monkeypatch.setattr(BroadcastChannel, "leave", spy)
+    clients = _renegotiating_clients(port, server, 2 if broadcast else 1, 10)
+
+    async def body():
+        return await asyncio.gather(*(c.run() for c in clients))
+
+    stats = _serve(server, port, body)
+    told = [any("renegotiation failed" in t for t in c.texts) for c in clients]
+    assert told.count(True) == 1 and len(failed) == 1
+    frames = [s.frames for s, t in zip(stats, told) if t] + [
+        s.frames for s, t in zip(stats, told) if not t]
+    assert frames[0] < 10 and frames[1:] == [10] * (len(clients) - 1)
+    if broadcast:
+        assert failed[0] in evicted
+
+
 def test_launch_count_is_exact_under_threads(monkeypatch):
     """The server launches kernels from executor threads: a wrapper's
     count must not lose an update when threads launch at once."""
