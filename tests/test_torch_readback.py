@@ -8,10 +8,21 @@ ticks or restores, and a steady loop takes its blocks from the pool.  The
 the copies' spans and counters (``upload``, ``readback``) and
 ``tick.readback_fresh_share``'s reader over hand-made spans.
 
+On the card, uploads from a caller's recurring buffers run from memory
+registered with CUDA (``serve/tick.py::HostRegistry``): bit-equal
+to pageable ones at 8K, the owner's range registered until it is dropped,
+the caller free to reuse its array once ``upload`` returns, one owner
+registered for a pool, and a refused registration leaving no error for
+the next launch.  The CPU half is ``tests/test_torch_upload_register.py``.
+
 The card tests skip without a CUDA device.  On the card, run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_readback.py
 """
+
+import ctypes
+import gc
+import os
 
 import numpy as np
 import pytest
@@ -23,6 +34,7 @@ from foveax_torch.config import FoveaxConfig
 from foveax_torch.pipeline import profiling
 from foveax_torch.pipeline.frames import FoveationPipeline
 from foveax_torch.serve.client import ClientRestore
+from foveax_torch.serve import tick as tick_mod
 from foveax_torch.serve.tick import ServeTick, readback, upload
 
 SMALL = dict(source_width=96, source_height=64, reduced_width=48, reduced_height=32)
@@ -266,3 +278,106 @@ def test_card_steady_readbacks_allocate_no_block(card, card_reduced, caller, cle
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
     assert profiling.counts().get(c.fresh, 0) == fresh
     assert not any(r.attrs["fresh"] for r in profiling.spans(names=(c.span,))[2:])
+
+
+class _PointerAttributes(ctypes.Structure):
+    _fields_ = [("type", ctypes.c_int), ("device", ctypes.c_int),
+                ("devicePointer", ctypes.c_void_p), ("hostPointer", ctypes.c_void_p)]
+
+
+def _memory_type(ptr: int) -> int:
+    """``cudaPointerGetAttributes``' type of ``ptr``: 0 unregistered
+    (pageable), 1 host memory page-locked for the device."""
+    lib = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}", mode=os.RTLD_NOLOAD)
+    fn = lib.cudaPointerGetAttributes
+    fn.argtypes = [ctypes.POINTER(_PointerAttributes), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    attrs = _PointerAttributes()
+    assert fn(ctypes.byref(attrs), ctypes.c_void_p(ptr)) == 0
+    return attrs.type
+
+
+def _card_pool(shape, n=4, seed=0):
+    """``n`` seeded frames as views of one pageable block, made as
+    ``benchmark/inputs.py::frame_pool`` makes them."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    host = torch.randint(0, 256, (n, *shape), dtype=torch.uint8, device="cuda", generator=gen).cpu().numpy()
+    return [np.ascontiguousarray(host[i]) for i in range(n)]
+
+
+def _up(x):
+    return upload(x, torch.device("cuda"), profiling.span("serve.stage"), counted=True)
+
+
+@pytest.mark.cuda
+def test_card_registered_upload_is_bit_equal_at_8k(card, clean):
+    pool = _card_pool((4320, 7680, 3))
+    for k in range(8):
+        got = _up(pool[k % 4])
+        want = _up(pool[k % 4].copy())  # a fresh array: pageable
+        assert torch.equal(got, want)
+    recs = profiling.spans(names=("serve.stage",))
+    assert [r.attrs["registered"] for r in recs[::2]] == [False] + [True] * 7
+    assert [r.attrs.get("register", False) for r in recs[::2]] == [False, True] + [False] * 6
+    assert not any(r.attrs["registered"] for r in recs[1::2])  # the fresh copies
+
+
+@pytest.mark.cuda
+def test_card_owner_is_registered_until_dropped(card, clean):
+    pool = _card_pool((1080, 1920, 3), seed=1)
+    ptr, nbytes = tick_mod._extent(tick_mod._owner(pool[0]))
+    _up(pool[0])
+    assert _memory_type(ptr) == 0
+    _up(pool[1])
+    assert _memory_type(ptr) == 1 and _memory_type(ptr + nbytes - 1) == 1
+    assert torch.from_numpy(pool[3]).is_pinned()
+    del pool
+    gc.collect()
+    assert _memory_type(ptr) == 0
+
+
+@pytest.mark.cuda
+def test_card_caller_may_reuse_its_array_on_return(card, clean):
+    pool = _card_pool((1080, 1920, 3), seed=2)
+    for f in pool[:2]:
+        _up(f)
+    before = pool[1].copy()
+    got = _up(pool[1])
+    assert profiling.spans(names=("serve.stage",))[-1].attrs["registered"] is True
+    pool[1][:] = 0
+    torch.cuda.synchronize()
+    assert got.cpu().numpy().tobytes() == before.tobytes()
+
+
+@pytest.mark.cuda
+def test_card_steady_loop_registers_one_owner(card, clean):
+    p, _ = card
+    pool = _card_pool((1080, 1920, 3), seed=3)
+    tick = ServeTick(p, p.batch_pair("auto"))
+    before = profiling.counts().get("serve.stage_registered", 0)
+    for k in range(12):
+        with ServeTick.unit(viewers=3):
+            tick.sample(tick.prepare(pool[k % 4]), GAZES[k % 3: k % 3 + 3])
+    recs = profiling.spans(names=("serve.stage",))
+    frames = [r for r in recs if r.attrs["bytes"] == pool[0].nbytes]
+    assert [r.attrs["registered"] for r in frames] == [False] + [True] * 11
+    assert sum(bool(r.attrs.get("register")) for r in recs) == 1
+    assert profiling.counts()["serve.stage_registered"] - before == 11
+
+
+@pytest.mark.cuda
+def test_card_refused_registration_leaves_no_error(card, clean):
+    """A range registered twice is refused; the runtime's error is
+    cleared, so the next launch's check does not report it."""
+    runtime = tick_mod.CudaHostRuntime()
+    a = np.ones(1 << 22, dtype=np.uint8)
+    assert runtime.register(a.ctypes.data, a.nbytes)
+    try:
+        assert not runtime.register(a.ctypes.data, a.nbytes)
+        x = torch.arange(1024, device="cuda") * 2
+        assert int(x.sum()) == 1023 * 1024
+        torch.cuda.synchronize()
+    finally:
+        runtime.unregister(a.ctypes.data)
+    assert _memory_type(a.ctypes.data) == 0
