@@ -20,6 +20,12 @@ is a :class:`span`, recorded always:
 - Finished spans go into a ring of the last :data:`RING_SPANS`;
   ``setup.*`` spans go into a list of their own that the ring never
   evicts.  :func:`spans` and :func:`setup_spans` read them.
+- A span opened while a ``torch.profiler`` runs also goes, as it
+  finishes, into a store of its own (up to :data:`RING_SPANS`) that the
+  ring never evicts, so a traced stretch's spans can be read after the
+  ring has wrapped past them.  :func:`spans` reads the ring and that
+  store together, each span once.  The counter ``profiling.ring_evicted``
+  (:func:`counts`) says how many spans the ring has dropped.
 - Stamps are ``time.perf_counter_ns()``.  :func:`spans` returns them on
   ``torch.profiler``'s clock (Unix-epoch ns, ``time.time_ns()``), through
   an offset taken at read time from the tightest of a few paired clock
@@ -28,7 +34,7 @@ is a :class:`span`, recorded always:
 - While a ``torch.profiler`` runs, each span also opens a
   ``torch.profiler.record_function`` of its name, so that a
   :func:`device_trace` shows the spans over the kernels.  Without a
-  profiler a span costs two clock reads and an append.
+  profiler a span costs two clock reads, an append and an addition.
 
 :func:`count` keeps counters beside the spans.  A :class:`StageTimer` is
 a bounded per-name summary (count, total, max, p50, p95) that spans feed
@@ -64,6 +70,14 @@ SETUP_SPANS = 4096
 
 _ring: deque = deque(maxlen=RING_SPANS)
 _setup: deque = deque(maxlen=SETUP_SPANS)
+# Ring spans opened under a running profiler, kept past the ring.
+_kept: deque = deque(maxlen=RING_SPANS)
+# Spans appended to the ring since start or clear(): less the ring's
+# length, the spans it dropped.  A plain int, so a span takes no lock:
+# CPython switches threads only at bytecodes that check for a switch, and
+# none of those of ``+=`` on a global int does (tests/test_torch_tracing.py
+# holds the count exact across threads).
+_ring_appended = 0
 _open: contextvars.ContextVar = contextvars.ContextVar("foveax_torch_span", default=None)
 _counts: dict[str, int] = defaultdict(int)
 _counts_lock = threading.Lock()
@@ -112,8 +126,10 @@ class span:
         return self
 
     def __exit__(self, *exc) -> bool:
-        if self._mirror is not None:
-            self._mirror.__exit__(*exc)
+        global _ring_appended
+        mirror = self._mirror
+        if mirror is not None:
+            mirror.__exit__(*exc)
             self._mirror = None
         self.end = _now()
         _open.reset(self._token)
@@ -122,6 +138,10 @@ class span:
         if store is None:
             store = _stores[self.name] = _setup if self.name.startswith("setup.") else _ring
         store.append(self)
+        if store is _ring:
+            _ring_appended += 1
+            if mirror is not None:
+                _kept.append(self)
         if self.tally is not None:
             self.tally.add(self)
             self.tally = None  # the ring keeps plain records
@@ -161,9 +181,14 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counts() -> dict[str, int]:
-    """Every counter's value."""
+    """Every counter's value, with ``profiling.ring_evicted`` (the spans
+    the ring has dropped) once the ring has dropped any."""
     with _counts_lock:
-        return dict(_counts)
+        out = dict(_counts)
+    evicted = _ring_appended - len(_ring)
+    if evicted > 0:
+        out["profiling.ring_evicted"] = evicted
+    return out
 
 
 class Record(NamedTuple):
@@ -211,10 +236,14 @@ def _records(source, lo_ns, hi_ns, names=None) -> list[Record]:
 
 def spans(lo_ns: int | None = None, hi_ns: int | None = None,
           names=None) -> list[Record]:
-    """The ring's spans that start at or after ``lo_ns`` and end at or
-    before ``hi_ns`` (profiler clock), oldest first by end; only those
-    called one of ``names`` where it is given."""
-    return _records(_ring, lo_ns, hi_ns, names)
+    """The spans of the ring and of the profiled store that start at or
+    after ``lo_ns`` and end at or before ``hi_ns`` (profiler clock), each
+    once, oldest first by end; only those called one of ``names`` where
+    it is given."""
+    both = {s.id: s for s in (*_kept, *_ring)}
+    out = _records(both.values(), lo_ns, hi_ns, names)
+    out.sort(key=lambda r: r.end)
+    return out
 
 
 def setup_spans() -> list[Record]:
@@ -224,8 +253,11 @@ def setup_spans() -> list[Record]:
 
 def clear() -> None:
     """Forget every span and counter."""
+    global _ring_appended
     _ring.clear()
     _setup.clear()
+    _kept.clear()
+    _ring_appended = 0
     with _counts_lock:
         _counts.clear()
 

@@ -8,7 +8,8 @@ memory (phases 11 and 13); K7, the SAT path's 4-tap sampler, on the
 path's taps at 1080p and 4K, random seam taps, wrapped SAT words and odd
 widths, with its checks and its count; the SAT serve tick at 8K on
 frames whose channel totals wrap past 2^32, against the benchmark's plain
-reference.
+reference; the fused serve tick at 1080p with a channel's 32 gazes,
+against the same tick on the CPU.
 
 These tests need a CUDA device and skip without one.  On the card, run
 
@@ -17,11 +18,15 @@ These tests need a CUDA device and skip without one.  On the card, run
 (``--noconftest``: the suite's conftest configures JAX, which the port's
 machine does not need)."""
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from benchmark.inputs import gaze_trace
 from benchmark.reference.foveation import BoxFilter
 from foveax_torch import FoveaxConfig, FoveationPipeline
 from foveax_torch.config import reduced_dim
@@ -823,3 +828,32 @@ def test_sat_tick_wraps_at_8k(pipe, fill):
            for v, g in enumerate(gazes)]
     print(f"{fill}: reduced bytes off per gaze {off}")
     assert off == [0] * 8
+
+
+def test_channel_1080p_32_on_card(pipe):
+    """The serve tick over ``batch_pair("auto")`` at the ``ref1080p``
+    deployment's 1920x1080 -> 1072x608 with a channel's 32 gazes (28 from
+    the ``broadcast32`` gaze model, both sides of the wrap seam, both
+    poles), as the benchmark's ``ref1080p.broadcast32`` cell runs it: one
+    ``segreduce_xy`` launch, and the reduced frames equal the plain twin's
+    (the same tick on the CPU, tolerance 0)."""
+    root = Path(__file__).resolve().parents[1]
+    traffic = json.loads((root / "benchmark/traffic/broadcast32.json").read_text())
+    trace = gaze_trace(np.random.default_rng(2**31 + 28), 28, traffic["gaze"])
+    gazes = [tuple(map(float, g)) for g in trace[28]]
+    gazes += [(0.0, 0.5), (0.999, 0.5), (0.5, 0.0), (0.5, 0.999)]
+    assert len(gazes) == traffic["viewers"] == 32
+    cfg = FoveaxConfig(source_width=1920, source_height=1080, reduced_width=1072,
+                       reduced_height=608)
+    frame = np.random.default_rng(2**31 + 28).integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = FoveationPipeline(cfg, device=device)
+        assert p.sampler == "fused"
+        tick = ServeTick(p, p.batch_pair("auto"))
+        launches = sr.XY_PASS.launches
+        out[device] = tick.sample(tick.prepare(frame), gazes)
+        if device == "cuda":
+            assert sr.XY_PASS.launches - launches == 1
+    assert out["cuda"].shape == (32, 608, 1072, 3)
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])

@@ -1,15 +1,16 @@
 """The port's tracer (``foveax_torch/pipeline/profiling.py``) on the CPU:
 the span tree and unit ids across asyncio tasks and executor threads, the
-ring's bound, the ``setup.*`` list, the ``record_function`` mirror on the
-profiler's clock, the program's span names against the benchmark
-drivers', and the serve tick and client restore as callables against the
-inline code they replaced."""
+ring's bound, the ``setup.*`` list, the profiled spans kept past the
+ring, the ``record_function`` mirror on the profiler's clock, the
+program's span names against the benchmark drivers', and the serve tick
+and client restore as callables against the inline code they replaced."""
 
 import ast
 import asyncio
 import logging
 import re
 import threading
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -141,6 +142,88 @@ def test_ring_is_bounded_and_setup_spans_survive(clean):
     assert profiling.spans(names=("serve.tick",)) == []
 
 
+def _fields(r):
+    """A record without its stamps, which each read puts on the profiler's
+    clock through an offset of its own."""
+    return (r.name, r.end - r.start, r.thread, r.parent, r.unit, r.id, r.attrs)
+
+
+def test_profiled_spans_outlive_the_ring(clean):
+    """Spans that finish under a running torch.profiler are still read
+    whole, once each, after the ring has wrapped past them; the ring's
+    drops are counted, and clear() forgets both stores."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profiling.span("serve.read"):
+        pass
+    # Each read puts the stamps on the profiler's clock through an offset of
+    # its own, so the window's edges keep a gap wider than the offsets differ.
+    time.sleep(0.05)
+    lo = profiling.now_ns()
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    for k in range(50):
+        with profiling.root("serve.tick", k=k):
+            with profiling.span("sampler.taps", viewers=32):
+                pass
+    prof.stop()
+    hi = profiling.now_ns()
+    time.sleep(0.05)
+    traced = profiling.spans(lo, hi)
+    assert len(traced) == 100 and len({r.id for r in traced}) == 100  # in both stores, read once
+    assert [r.attrs["k"] for r in traced if r.name == "serve.tick"] == list(range(50))
+    assert "profiling.ring_evicted" not in profiling.counts()
+
+    n = profiling.RING_SPANS + 100
+    for k in range(n):
+        with profiling.span("serve.read", k=k):
+            pass
+    assert profiling.counts()["profiling.ring_evicted"] == 1 + 100 + 100
+    assert [_fields(r) for r in profiling.spans(lo, hi)] == [_fields(r) for r in traced]
+    recs = profiling.spans()
+    assert len(recs) == profiling.RING_SPANS + 100 and len({r.id for r in recs}) == len(recs)
+    assert [r.end for r in recs] == sorted(r.end for r in recs)
+    assert [_fields(r) for r in recs[:100]] == [_fields(r) for r in traced]
+    assert [_fields(r) for r in profiling.spans(names=("sampler.taps",))] == [
+        _fields(r) for r in traced if r.name == "sampler.taps"]
+
+    profiling.clear()
+    assert profiling.spans() == [] and "profiling.ring_evicted" not in profiling.counts()
+    with profiling.span("serve.read"):
+        pass
+    assert len(profiling.spans()) == 1 and profiling.counts() == {}
+
+
+def test_ring_evictions_counted_across_threads(clean):
+    """More threads than cores make spans with a short switch interval:
+    ``profiling.ring_evicted`` counts every span the ring dropped, with
+    no lock taken per span."""
+    import os
+    import sys
+
+    workers, each = 2 * (os.cpu_count() or 1) + 2, 8000
+    assert workers * each > profiling.RING_SPANS
+
+    def feed():
+        for _ in range(each):
+            with profiling.span("serve.read"):
+                pass
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=feed) for _ in range(workers)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert len(profiling.spans()) == profiling.RING_SPANS
+    assert profiling.counts()["profiling.ring_evicted"] == workers * each - profiling.RING_SPANS
+
+
 def test_spans_window_and_counters(clean):
     with profiling.span("serve.read"):
         pass
@@ -222,14 +305,18 @@ def _driver_spans() -> set[str]:
 
 
 def test_program_span_names_are_dotted_and_not_the_drivers():
-    """The benchmark keeps user annotations by name: a program span named
-    like a driver's span would be read as the driver's."""
+    """Each key of a benchmark driver's ``SPANS`` is a step of its unit,
+    carried by the port span it names.  The benchmark keeps user
+    annotations by name, so a port span named like a step would be read
+    as that step."""
     names = _program_span_names()
     assert names == PROGRAM_SPANS
     assert all("." in n for n in names)
     drivers = _driver_spans()
     assert {"stage", "sample", "upload", "unwarp"} <= drivers
-    assert not names & drivers
+    assert not names & drivers, (
+        f"port spans named like a driver's steps (each SPANS key is a step carried by the "
+        f"port span it names): {sorted(names & drivers)}")
     assert not {f"stage.{n}" for n in ("h2d+dispatch", "d2h", "sink")} & drivers
 
 
